@@ -1,0 +1,175 @@
+"""The port's CUDA kernels against their plain twins on the card.
+
+Marked ``gpu``; without a card every test skips (decided in the
+``cuda`` fixture).  Runs on the card with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest`` because the suite's conftest imports JAX, which the
+port's machine need not have).  This file imports no JAX.
+
+Tolerances: the Newton kernel within 2e-4 (rtol and atol) of its twin,
+the cascade kernel within 1e-5 of max|y| (fp32 arithmetic in another
+order than the twin's matmuls).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import diffsptk_tpu_torch as pt
+from diffsptk_tpu_torch.kernels import mlsa, newton
+from diffsptk_tpu_torch.kernels.mlsa_cascade import (
+    chunked_geometry,
+    lane_aligned_nfft,
+    taylor_cascade_chunked,
+    taylor_cascade_folded,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _system(n, B, seed=0):
+    rng = np.random.default_rng(seed)
+    rt = rng.standard_normal((2 * n - 1, B)).astype(np.float32) * 0.1
+    rt[0] += 4.0 + n * 0.2
+    b = rng.standard_normal((n, B)).astype(np.float32)
+    return rt, b
+
+
+@pytest.mark.parametrize("n,B", [(1, 5), (6, 100), (25, 7680), (33, 70)])
+def test_newton_kernel_matches_twin(cuda, n, B):
+    rt, b = (torch.as_tensor(a, device=cuda) for a in _system(n, B))
+    before = newton.launches
+    x = newton.newton_solve_lane_major(rt, b)
+    assert newton.launches == before + 1
+    torch.testing.assert_close(x, newton.newton_solve_plain(rt, b),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_newton_kernel_backward(cuda):
+    rt, b = (torch.as_tensor(a, device=cuda).requires_grad_(True)
+             for a in _system(25, 300, seed=1))
+    newton.newton_solve_t(rt, b).sin().sum().backward()
+    grads = rt.grad.clone(), b.grad.clone()
+    rt.grad = b.grad = None
+    with pt.twins():
+        newton.newton_solve_t(rt, b).sin().sum().backward()
+    torch.testing.assert_close(grads[0], rt.grad, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(grads[1], b.grad, rtol=2e-4, atol=2e-4)
+
+
+def test_newton_kernel_rejects(cuda):
+    rt, b = (torch.as_tensor(a, device=cuda) for a in _system(6, 10))
+    with pytest.raises(TypeError):
+        newton.newton_solve_lane_major(rt.double(), b.double())
+    with pytest.raises(ValueError):
+        newton.newton_solve_lane_major(rt.T.contiguous().T, b)
+    rt, b = (torch.as_tensor(a, device=cuda) for a in _system(34, 10))
+    with pytest.raises(ValueError):
+        newton.newton_solve_lane_major(rt, b)
+
+
+def _cascade_case(cuda, B, N, P, M, S, seed=2):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((B, N * P)), dtype=torch.float32,
+                        device=cuda)
+    base = rng.standard_normal((B, 1, M + 1)) * (0.8 ** np.arange(M + 1))
+    c = torch.as_tensor(
+        base * (1 + 0.05 * rng.standard_normal((B, N, M + 1))) * 0.3,
+        dtype=torch.float32, device=cuda)
+    weights = torch.as_tensor(
+        1.0 / np.cumprod([1.0] + list(range(1, S + 1))), dtype=torch.float32,
+        device=cuda)
+    a = torch.ones(S + 1, dtype=torch.float32, device=cuda)
+    return x, c, weights, a
+
+
+def _assert_cascade_close(y, want):
+    err = float((y - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("B,N,P,M,S,advance", [(2, 7, 16, 39, 4, 0),
+                                               (3, 40, 80, 199, 5, 0),
+                                               (1, 9, 16, 30, 3, 5),
+                                               (2, 30, 18, 50, 3, 0),
+                                               (1, 12, 16, 239, 3, 0)])
+def test_cascade_kernel_matches_twin(cuda, B, N, P, M, S, advance):
+    """Tile edges, the last-row blend, P not a multiple of 4, Q up to
+    15."""
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S)
+    nfft_c = lane_aligned_nfft(3 * P)
+    before = mlsa.launches
+    y = mlsa.cascade_chunked_cuda(x.reshape(B, N, P), c, weights, a, P,
+                                  advance, nfft_c)
+    assert mlsa.launches == before + S
+    want = taylor_cascade_chunked(x, c, weights, a, P, advance, nfft_c)
+    _assert_cascade_close(y.reshape(B, N * P), want)
+
+
+@pytest.mark.parametrize("j", [0, 1, 2])
+def test_cascade_kernel_each_chunk(cuda, j):
+    """Coefficients in tap chunk j only, at the flagship P and M: the
+    decaying coefficients of the cases above leave chunks 1 and 2 near
+    zero at P=80."""
+    B, N, P, M, S = 2, 50, 80, 199, 20
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=4)
+    lo, hi = j * P, min((j + 1) * P, M + 1)
+    c = torch.zeros_like(c)
+    c[..., lo:hi] = torch.as_tensor(
+        np.random.default_rng(j).standard_normal((B, N, hi - lo)) * 0.02,
+        dtype=torch.float32, device=cuda)
+    nfft_c = lane_aligned_nfft(3 * P)
+    y = mlsa.cascade_chunked_cuda(x.reshape(B, N, P), c, weights, a, P, 0,
+                                  nfft_c)
+    want = taylor_cascade_chunked(x, c, weights, a, P, 0, nfft_c)
+    _assert_cascade_close(y.reshape(B, N * P), want)
+
+
+def test_cascade_entry_takes_the_kernel(cuda):
+    B, N, P, M, S = 2, 50, 80, 199, 20
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=3)
+    nfft = lane_aligned_nfft(2 * P + M + 1)
+    assert chunked_geometry(M, P, nfft) is not None
+    before = mlsa.launches
+    y = mlsa.taylor_cascade(x, c, weights, a, P, 0, nfft)
+    assert mlsa.launches == before + S
+    _assert_cascade_close(y, taylor_cascade_folded(x, c, weights, a, P, 0,
+                                                   nfft))
+    with pytest.raises(TypeError):
+        mlsa.taylor_cascade(x.double(), c.double(), weights.double(),
+                            a.double(), P, 0, nfft)
+
+
+def test_vocoder_runs_both_kernels(cuda):
+    voc = pt.MelCepstralVocoder(cascade="fused", device=cuda,
+                                dtype=torch.float32)
+    x = torch.randn(2, 3200, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    newton.launches = mlsa.launches = 0
+    y = voc.analysis_synthesis(x)
+    assert newton.launches == 10 and mlsa.launches == 40
+    assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+def test_vocoder_float64_takes_the_plain_paths(cuda):
+    """The kernels take float32; a float64 chain on the card runs the
+    non-kernel branches, as the JAX package does off the TPU."""
+    voc = pt.MelCepstralVocoder(cascade="fused", device=cuda,
+                                dtype=torch.float64)
+    x = torch.randn(1, 1600, device=cuda, dtype=torch.float64,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    newton.launches = mlsa.launches = 0
+    y = voc.analysis_synthesis(x)
+    assert newton.launches == 0 and mlsa.launches == 0
+    assert torch.isfinite(y).all()
