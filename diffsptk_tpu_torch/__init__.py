@@ -10,6 +10,7 @@ which is what a CPU tensor runs.  The package never imports JAX.
 from .core import BaseOp, Design
 from .kernels.state import twins
 from .models.mcep_vocoder import MelCepstralVocoder
+from .ops.acorr import Autocorrelation
 from .ops.fftr import RealValuedFastFourierTransform
 from .ops.frame import Frame
 from .ops.freqt import FrequencyTransform
@@ -17,12 +18,19 @@ from .ops.gnorm import (
     GeneralizedCepstrumGainNormalization,
     GeneralizedCepstrumInverseGainNormalization,
 )
+from .ops.levdur import LevinsonDurbin, ReverseLevinsonDurbin
+from .ops.lpc import LinearPredictiveCodingAnalysis
 from .ops.mcep import CoefficientsFrequencyTransform, MelCepstralAnalysis
 from .ops.mgc2mgc import MelGeneralizedCepstrumToMelGeneralizedCepstrum
 from .ops.mglsadf import (
     PseudoInverseMGLSADigitalFilter,
     PseudoMGLSADigitalFilter,
 )
+from .ops.parcor import (
+    AllPoleToAllZeroDigitalFilterCoefficients,
+    AllZeroToAllPoleDigitalFilterCoefficients,
+)
+from .ops.poledf import AllPoleDigitalFilter
 from .ops.spec import Spectrum
 from .ops.stft import ShortTimeFourierTransform
 from .ops.window import Window
@@ -30,11 +38,16 @@ from .ops.zerodf import AllZeroDigitalFilter
 from .utils.carry import load_jax_params
 
 STFT = ShortTimeFourierTransform
+LPC = LinearPredictiveCodingAnalysis
 MLSA = PseudoMGLSADigitalFilter
 IMLSA = PseudoInverseMGLSADigitalFilter
 
 __all__ = [
+    "AllPoleDigitalFilter",
+    "AllPoleToAllZeroDigitalFilterCoefficients",
     "AllZeroDigitalFilter",
+    "AllZeroToAllPoleDigitalFilterCoefficients",
+    "Autocorrelation",
     "BaseOp",
     "CoefficientsFrequencyTransform",
     "Design",
@@ -43,6 +56,9 @@ __all__ = [
     "GeneralizedCepstrumGainNormalization",
     "GeneralizedCepstrumInverseGainNormalization",
     "IMLSA",
+    "LPC",
+    "LevinsonDurbin",
+    "LinearPredictiveCodingAnalysis",
     "MLSA",
     "MelCepstralAnalysis",
     "MelCepstralVocoder",
@@ -50,6 +66,7 @@ __all__ = [
     "PseudoInverseMGLSADigitalFilter",
     "PseudoMGLSADigitalFilter",
     "RealValuedFastFourierTransform",
+    "ReverseLevinsonDurbin",
     "STFT",
     "ShortTimeFourierTransform",
     "Spectrum",

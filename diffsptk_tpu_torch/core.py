@@ -93,9 +93,20 @@ def child(cls, **kwargs):
 
 def place(module: nn.Module, device=None, dtype=None) -> nn.Module:
     """Move a freshly built module tree to ``device`` (default: the card)
-    in ``dtype`` (default: torch's default dtype)."""
+    in ``dtype`` (default: torch's default dtype); complex buffers take
+    the complex counterpart of ``dtype``."""
     dev = resolve_device(device)
-    return module.to(device=dev, dtype=dtype or torch.get_default_dtype())
+    dt = dtype or torch.get_default_dtype()
+    cdt = torch.complex64 if dt == torch.float32 else torch.complex128
+
+    def convert(t):
+        if t.is_complex():
+            return t.to(device=dev, dtype=cdt)
+        if t.is_floating_point():
+            return t.to(device=dev, dtype=dt)
+        return t.to(device=dev)
+
+    return module._apply(convert)
 
 
 class BaseOp(nn.Module):
@@ -124,7 +135,9 @@ class BaseOp(nn.Module):
             learn = tuple(learnable)
         self._array_names = tuple(design.arrays)
         for name, a in design.arrays.items():
-            t = torch.as_tensor(np.asarray(a, np.float64))
+            a = np.asarray(a)
+            t = torch.as_tensor(a.astype(
+                np.complex128 if np.iscomplexobj(a) else np.float64))
             if name in learn:
                 self.register_parameter(name, nn.Parameter(t))
             else:

@@ -19,7 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("newton", "mlsa_cascade")
+SOURCES = ("newton", "mlsa_cascade", "spd_solve", "scan")
 
 _libs: dict[tuple, ctypes.CDLL] = {}
 _logs: dict = {}

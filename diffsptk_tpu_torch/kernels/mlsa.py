@@ -15,6 +15,7 @@ round trips need; a cheaper class is future work.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +36,7 @@ launches = 0
 count)."""
 
 
+@functools.cache
 def _lib(defines=()):
     lib = build.library("mlsa_cascade", defines)
     fn = lib.mlsa_cascade_stage_f32

@@ -76,6 +76,7 @@ def _check_args(rt_t: torch.Tensor, b_t: torch.Tensor) -> int:
     return n
 
 
+@functools.cache
 def _lib():
     lib = build.library("newton")
     fn = lib.newton_solve_f32

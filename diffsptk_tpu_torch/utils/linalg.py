@@ -1,13 +1,15 @@
 """Small structured-matrix and complex helpers (plain torch).
 
 Counterparts of ``diffsptk_tpu/utils/linalg.py``: the same gather-built
-Toeplitz / Hankel matrices and the same masked Cholesky solve.
+Toeplitz / Hankel matrices and the same SPD solve dispatch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..kernels import solve
 
 
 def symmetric_toeplitz(r: torch.Tensor) -> torch.Tensor:
@@ -87,43 +89,22 @@ def _spd_solve_batch_minor(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched symmetric-positive-definite solve A x = b.
 
-    A: (..., n, n), b: (..., n).  Small n at a real batch takes the
-    unrolled batch-minor Cholesky; otherwise a masked right-looking
-    Cholesky plus two masked substitution sweeps, each step one batched
-    dense update.  A non-positive pivot gives NaN, as in the JAX package.
+    A: (..., n, n), b: (..., n).  The JAX package's dispatch: on the card,
+    float32 systems of 12 < n <= 64 at a batch of at least 2048 take the
+    hand-written SPD solve kernel (kernels/solve.py); small n at a real
+    batch takes the unrolled batch-minor Cholesky; anything else the
+    masked right-looking Cholesky plus two masked substitution sweeps,
+    each step one batched dense update (the kernel's twin).  A
+    non-positive pivot gives NaN, as in the JAX package.
     """
     dt = torch.promote_types(A.dtype, b.dtype)
     A = A.to(dt)
     b = b.to(dt)
     n = A.shape[-1]
     batch = int(np.prod(A.shape[:-2])) if A.ndim > 2 else 1
+    if (A.is_cuda and dt == torch.float32
+            and _SPD_UNROLL_MAX < n <= solve.MAX_ORDER and batch >= 2048):
+        return solve.spd_solve_diff(A, b)
     if n <= _SPD_UNROLL_MAX and batch >= 8:
         return _spd_solve_batch_minor(A, b)
-    rows = torch.arange(n, device=A.device)
-
-    L = torch.zeros_like(A)
-    for j in range(n):
-        col = A[..., :, j]                                  # (..., n)
-        inv = torch.rsqrt(col[..., j])[..., None]
-        lcol = col * inv * (rows >= j)
-        L = L.clone()
-        L[..., :, j] = lcol
-        upd = lcol * (rows > j)
-        A = A - upd[..., :, None] * upd[..., None, :]
-
-    diag = torch.diagonal(L, dim1=-2, dim2=-1)              # (..., n)
-
-    y = torch.zeros_like(b)
-    for j in range(n):
-        acc = torch.sum(L[..., j, :] * y * (rows < j), dim=-1)
-        yj = (b[..., j] - acc) / diag[..., j]
-        y = y.clone()
-        y[..., j] = yj
-
-    x = torch.zeros_like(b)
-    for j in range(n - 1, -1, -1):
-        acc = torch.sum(L[..., :, j] * x * (rows > j), dim=-1)
-        xj = (y[..., j] - acc) / diag[..., j]
-        x = x.clone()
-        x[..., j] = xj
-    return x
+    return solve.spd_solve_plain(A, b)

@@ -10,7 +10,10 @@ port's machine need not have).  This file imports no JAX.
 
 Tolerances: the Newton kernel within 2e-4 (rtol and atol) of its twin,
 the cascade kernel within 1e-5 of max|y| (fp32 arithmetic in another
-order than the twin's matmuls).
+order than the twin's matmuls); the SPD solve kernel within 1e-4 of
+max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
+within 2e-5 (float32) and 1e-4 (complex64) of its twin, its backward
+within 1e-4 (the tolerances of tests/test_pallas_scan.py).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 import diffsptk_tpu_torch as pt
-from diffsptk_tpu_torch.kernels import mlsa, newton
+from diffsptk_tpu_torch.kernels import mlsa, newton, scan, solve
 from diffsptk_tpu_torch.kernels.mlsa_cascade import (
     chunked_geometry,
     lane_aligned_nfft,
@@ -173,3 +176,150 @@ def test_vocoder_float64_takes_the_plain_paths(cuda):
     y = voc.analysis_synthesis(x)
     assert newton.launches == 0 and mlsa.launches == 0
     assert torch.isfinite(y).all()
+
+
+def _f32(cuda, seed=None):
+    """float32 on the card (whatever torch's default dtype), with a
+    seeded generator when ``seed`` is given."""
+    kw = dict(device=cuda, dtype=torch.float32)
+    if seed is not None:
+        kw["generator"] = torch.Generator(cuda).manual_seed(seed)
+    return kw
+
+
+def _spd(cuda, batch, n, seed=0):
+    kw = _f32(cuda, seed)
+    M = torch.randn(batch, n, n, **kw)
+    A = M @ M.transpose(-1, -2) + n * torch.eye(n, **_f32(cuda))
+    return A, torch.randn(batch, n, **kw)
+
+
+@pytest.mark.parametrize("n,B", [(1, 5), (13, 2048), (24, 7680), (33, 300),
+                                 (64, 2050)])
+def test_spd_solve_kernel_matches_twin(cuda, n, B):
+    A, b = _spd(cuda, B, n)
+    before = solve.launches
+    x = solve.spd_solve_batched(A, b)
+    assert solve.launches == before + 1
+    want = solve.spd_solve_plain(A, b)
+    assert float((x - want).abs().max()) < 1e-4 * float(want.abs().max())
+
+
+def test_spd_solve_kernel_backward(cuda):
+    A, b = _spd(cuda, 2048, 24, seed=1)
+    A.requires_grad_(True)
+    b.requires_grad_(True)
+    before = solve.launches
+    solve.spd_solve_diff(A, b).sin().sum().backward()
+    assert solve.launches == before + 2
+    grads = A.grad + A.grad.transpose(-1, -2), b.grad.clone()
+    A.grad = b.grad = None
+    with pt.twins():
+        solve.spd_solve_diff(A, b).sin().sum().backward()
+    torch.testing.assert_close(grads[0], A.grad + A.grad.transpose(-1, -2),
+                               rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(grads[1], b.grad, rtol=1e-3, atol=1e-4)
+
+
+def test_spd_solve_kernel_rejects(cuda):
+    A, b = _spd(cuda, 4, 65)
+    with pytest.raises(ValueError):
+        solve.spd_solve_batched(A, b)
+    with pytest.raises(TypeError):
+        solve.spd_solve_batched(A[:, :8, :8].double(), b[:, :8].double())
+
+
+def test_spd_solve_kernel_indefinite_gives_nan(cuda):
+    A = torch.eye(16, **_f32(cuda)).repeat(3, 1, 1)
+    A[:, 0, 0] = -1.0
+    x = solve.spd_solve_batched(A, torch.ones(3, 16, **_f32(cuda)))
+    assert torch.isnan(x[:, 0]).all()
+
+
+def _scan_case(cuda, shape, complex_, seed=0):
+    kw = _f32(cuda, seed)
+    p = 0.9 * (2 * torch.rand(shape, **kw) - 1)
+    x = torch.randn(shape, **kw)
+    if complex_:
+        p = p * torch.exp(1j * 6.28 * torch.rand(shape, **kw))
+        x = torch.complex(x, torch.randn(shape, **kw))
+    return p, x
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("shape", [(32, 19200), (3, 1), (5, 1023),
+                                   (2, 1025), (1, 1100000), (4, 3, 777)])
+def test_scan_kernel_matches_twin(cuda, shape, complex_):
+    """One chunk, a ragged last chunk, and rows of more than 1,024 chunks
+    (a second level of summaries)."""
+    p, x = _scan_case(cuda, shape, complex_)
+    before = scan.launches
+    y = scan.first_order_scan(p, x)
+    assert scan.launches == before + 1
+    tol = 1e-4 if complex_ else 2e-5
+    torch.testing.assert_close(y, scan.first_order_scan_plain(p, x),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_scan_kernel_backward(cuda, complex_):
+    p, x = _scan_case(cuda, (4, 3000), complex_, seed=2)
+    p.requires_grad_(True)
+    x.requires_grad_(True)
+
+    def loss():
+        y = scan.scan_diff(p, x)
+        return (y.real.sin() + y.imag.cos()).sum() if complex_ \
+            else y.sin().sum()
+
+    before = scan.launches
+    loss().backward()
+    assert scan.launches == before + 2
+    grads = p.grad.clone(), x.grad.clone()
+    p.grad = x.grad = None
+    with pt.twins():
+        loss().backward()
+    torch.testing.assert_close(grads[0], p.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(grads[1], x.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_scan_kernel_rejects(cuda):
+    p, x = _scan_case(cuda, (2, 10), False)
+    with pytest.raises(TypeError):
+        scan.first_order_scan(p.double(), x.double())
+
+
+def test_lpc_takes_the_solve_kernel(cuda):
+    """2,048 frames of order 24 in float32 take the kernel; fewer frames
+    and float64 take the plain paths."""
+    x = torch.randn(8, 256, 400, **_f32(cuda, 3))
+    lpc = pt.LPC(400, 24, device=cuda, dtype=torch.float32)
+    before = solve.launches
+    a = lpc(x)
+    assert solve.launches == before + 1
+    with pt.twins():
+        want = lpc(x)
+    assert float((a - want).abs().max()) < 1e-3 * float(want.abs().max())
+    lpc(x[:, :100])
+    lpc64 = pt.LPC(400, 24, device=cuda, dtype=torch.float64)
+    a64 = lpc64(x.double())
+    assert solve.launches == before + 1
+    assert torch.isfinite(a64).all()
+
+
+def test_first_order_poledf_takes_the_scan_kernel(cuda):
+    kw = _f32(cuda, 4)
+    x = torch.randn(4, 1600, **kw)
+    a = torch.rand(4, 20, 2, **kw)
+    a[..., 1] = 0.9 * (2 * a[..., 1] - 1)
+    poledf = pt.AllPoleDigitalFilter(1, 80, device=cuda, dtype=torch.float32)
+    before = scan.launches
+    y = poledf(x, a)
+    assert scan.launches == before + 1
+    with pt.twins():
+        want = poledf(x, a)
+    torch.testing.assert_close(y, want, rtol=2e-5, atol=2e-5)
+    poledf64 = pt.AllPoleDigitalFilter(1, 80, device=cuda,
+                                       dtype=torch.float64)
+    poledf64(x.double(), a.double())
+    assert scan.launches == before + 1

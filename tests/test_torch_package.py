@@ -49,6 +49,10 @@ def test_imports_with_jax_blocked():
             "v = pt.MelCepstralVocoder(device='cpu', cascade='fused')\n"
             "y = v.analysis_synthesis(torch.randn(1, 800))\n"
             "assert y.shape == (1, 800)\n"
+            "a = pt.LPC(32, 4, device='cpu')(torch.randn(2, 32))\n"
+            "y = pt.AllPoleDigitalFilter(4, 8, device='cpu')(\n"
+            "    torch.randn(2, 8), a[:, None])\n"
+            "assert y.shape == (2, 8)\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
