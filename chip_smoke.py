@@ -33,6 +33,25 @@ Phases (each prints one line; any failure exits non-zero):
  10. lpc1   -- the same chain at LPC order 1, which takes the scan kernel;
  11. lpc-grad -- one backward of the M=24 chain on 16 x 12,800 samples
                (2,560 systems), through the solve kernel's backward;
+ 12. K3     -- the cascade kernel's unchunked entry against its twin at
+               B=32, N=240, S=20 and (P, M) = (240, 199) and (80, 79);
+ 13. K6, K7 -- the windowed gather and the overlap-add against their twins
+               at the shapes of every call site of [world] (recorded from
+               one call), and their backwards;
+ 14. world  -- WorldVocoder(ap_algorithm="d4c").analysis_synthesis
+               (BASELINE.json configs[3], YIN for its neural tracker) on
+               32 x 19,200 float32 samples: launch counts, the kernel path
+               against the twin path on the same noise, row 0 against a
+               float64 CPU run on the same noise, the log-energy and
+               spectrogram correlations of y with x, the median and p90
+               of 20 calls, and the profiler's device breakdown;
+ 15. world-tandem -- the same with TANDEM, the model's default;
+ 16. world-grad -- one backward of the chain on 4 x 12,800 samples, through
+               the gather's and the overlap-add's backwards;
+ 17. chain48 -- MelCepstralVocoder at 48 kHz with 5 ms frames (P=240,
+               cascade="fused", Taylor order 25) on 32 x 57,600 samples,
+               which takes the unchunked cascade entry; both float32
+               paths against a float64 run on the card, SNR above 20 dB;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -398,6 +417,506 @@ def run_lpc(torch, M: int, xs, card: str, tag: str) -> tuple[dict, float]:
     return launches, med
 
 
+
+def cascade_bound(B: int, N: int, P: int, M: int, S: int):
+    """The least work of an S-stage Taylor MLSA cascade (not the kernel's
+    DFT-plan method): per frame and stage a (M+1)-tap FIR blended between
+    the filters of frames n and n+1.  Directly that is 2 (M+1) 2 flops per
+    sample; as an FFT convolution one real transform of the frame's
+    L = P+M inputs and two inverse ones, at 2.5 L log2 L flops each, two
+    complex products and the blend; plus one transform of each frame's c
+    per call.  The lower count sets the bound, against x, y and c read or
+    written once."""
+    L = P + M
+    rfft = 2.5 * L * np.log2(L)
+    per_frame = min(2 * (M + 1) * 2 * P,
+                    3 * rfft + 2 * 6 * (L // 2 + 1) + 3 * P)
+    flops = B * N * (S * per_frame + rfft)
+    return bound_ms((2 * B * N * P + B * N * (M + 1)) * 4.0, flops)
+
+
+def cascade_case(torch, dev, B, N, P, M, S, seed):
+    """x and coefficients that decay slowly enough for every tap to carry
+    weight, with a stage gain near 1 (as [K2] draws them)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N * P)).astype(np.float32)
+    base = rng.standard_normal((B, 1, M + 1)) * (0.99 ** np.arange(M + 1))
+    c = (base * (1 + 0.05 * rng.standard_normal((B, N, M + 1))) * 0.04)
+    w = 1.0 / np.arange(1, S + 1)
+    weights = torch.as_tensor(np.insert(w, 0, 1.0), dtype=torch.float32,
+                              device=dev)
+    a = torch.ones(S + 1, dtype=torch.float32, device=dev)
+    return (torch.as_tensor(x, device=dev),
+            torch.as_tensor(c.astype(np.float32), device=dev), weights, a)
+
+
+def check_unchunked(torch, dev, card: str) -> dict:
+    """[K3]: the cascade kernel's unchunked entry (B3) against its twin at
+    B=32, N=240, S=20, at the 48 kHz geometry (P=240, M=199) and at
+    P=80, M=79; times at the first."""
+    from diffsptk_tpu_torch.core import full_precision
+    from diffsptk_tpu_torch.kernels import build, mlsa
+    from diffsptk_tpu_torch.kernels.mlsa_cascade import (
+        chunked_geometry,
+        lane_aligned_nfft,
+        taylor_cascade_unchunked,
+    )
+
+    B, N, S = 32, 240, 20
+    lines, out = [], None
+    for P, M in ((240, 199), (80, 79)):
+        nfft = lane_aligned_nfft(2 * P + M + 1)
+        check(chunked_geometry(M, P, nfft) is None,
+              f"K3: P={P}, M={M} is not the unchunked geometry")
+        x, c, weights, a = cascade_case(torch, dev, B, N, P, M, S, seed=P)
+
+        def kernel():
+            return mlsa.cascade_unchunked_cuda(x.reshape(B, N, P), c,
+                                               weights, a, P, 0, nfft)
+
+        def plain():
+            return taylor_cascade_unchunked(x, c, weights, a, P, 0, nfft)
+
+        y_k = full_precision(kernel)().reshape(B, N * P)
+        y_p = full_precision(plain)()
+        torch.cuda.synchronize()
+        scale = float(y_p.abs().max())
+        err = float((y_k - y_p).abs().max())
+        check(err <= 1e-5 * scale,
+              f"K3 at P={P}, M={M} disagrees with its twin: {err} > 1e-5 * "
+              f"{scale}")
+        K = nfft // 2 + 1
+        _, _, _, _, n_blk, _ = mlsa.unchunked_plans(nfft, M, P, 0, dev)
+        lib = build.library("mlsa_cascade")
+        rows = lib.mlsa_cascade_unchunked_rows(P, K, n_blk)
+        smem = lib.mlsa_cascade_unchunked_smem_bytes(P, K, n_blk)
+        ms = cuda_ms(torch, full_precision(kernel), 10)
+        plain_ms = cuda_ms(torch, full_precision(plain), 5)
+        bound, by = cascade_bound(B, N, P, M, S)
+        lines.append(f"P={P} M={M} nfft={nfft} K={K} (tile of {rows} rows, "
+                     f"{smem} bytes): |kernel-twin| {err:.3e} (tol 1e-5 * "
+                     f"max|y| = {1e-5 * scale:.3e}), kernel {ms:.3f} ms per "
+                     f"call ({S} launches), twin {plain_ms:.3f} ms, bound "
+                     f"{bound:.4f} ms ({by})")
+        if out is None:
+            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"[K3] B={B} N={N} S={S}: " + "; ".join(lines)
+          + f"; library: none, no single PyTorch call | {card}", flush=True)
+    return out
+
+
+def record_calls(module, name: str, sink: list):
+    """Wrap ``module.name`` so that every call appends its arguments to
+    ``sink``; returns a function that restores it."""
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        sink.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, orig)
+
+
+def covered_samples(torch, T: int, starts, length: int) -> int:
+    """Distinct samples of the (B, T) rows that the windows read, their
+    indices clamped to [0, T-1] as the gather clamps them: the least input
+    a gather at these starts must read."""
+    lo = starts.long().clamp(0, T - 1)
+    hi = (starts.long() + length - 1).clamp(0, T - 1)
+    d = torch.zeros(starts.shape[0], T + 1, device=starts.device,
+                    dtype=torch.int64)
+    d.scatter_add_(1, lo, torch.ones_like(lo))
+    d.scatter_add_(1, hi + 1, -torch.ones_like(hi))
+    return int((d.cumsum(1)[:, :T] > 0).sum())
+
+
+def check_gather(torch, sites, card: str) -> dict:
+    """[K6]: the gather kernel against its twin at every call site of one
+    [world] call (exact: a copy), its backward, and the times of all the
+    sites together."""
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import gather
+
+    ms = plain_ms = lib_ms = bound = nbytes = 0.0
+    shapes = []
+    for (x, starts, length), _ in sites:
+        got = gather.gather_windows_cuda(x, starts, length)
+        want = gather.gather_windows_plain(x, starts, length)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"K6 at {tuple(x.shape)}, {tuple(starts.shape)}, {length} is "
+              f"not equal to its twin: {float((got - want).abs().max())}")
+        idx = (starts[..., None].long() + torch.arange(
+            length, device=x.device)).clamp(0, x.shape[-1] - 1)
+        xe = x[:, None, :].expand(-1, idx.shape[1], -1)
+        ms += cuda_ms(torch, lambda: gather.gather_windows_cuda(
+            x, starts, length), 100)
+        plain_ms += cuda_ms(torch, lambda: gather.gather_windows_plain(
+            x, starts, length), 20)
+        lib_ms += cuda_ms(torch, lambda: torch.gather(xe, 2, idx), 100)
+        b = (covered_samples(torch, x.shape[-1], starts, length)
+             + starts.numel() + got.numel()) * 4.0
+        nbytes += b
+        bound += bound_ms(b, 0.0)[0]
+        shapes.append(f"{tuple(x.shape)}x{length}")
+    # backward at the largest site, kernel (through the overlap-add kernel)
+    # against the twin (index_add)
+    (x, starts, length), _ = max(sites, key=lambda s: s[0][0].numel())
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn(starts.shape + (length,), device=x.device,
+                    generator=torch.Generator(x.device).manual_seed(3))
+    gather.gather_windows(xg, starts, length).backward(g)
+    d_k = xg.grad.clone()
+    xg.grad = None
+    with twins():
+        gather.gather_windows(xg, starts, length).backward(g)
+    err_grad = float((d_k - xg.grad).abs().max())
+    scale = float(xg.grad.abs().max())
+    check(err_grad <= 1e-5 * scale,
+          f"K6 backward disagrees with the twin's: {err_grad}")
+    print(f"[K6] {len(sites)} call sites of one [world] call ("
+          + ", ".join(shapes) + f"): kernel equal to its twin at every "
+          f"site; backward at {tuple(x.shape)} {err_grad:.3e} (tol 1e-5 * "
+          f"max {scale:.3e}); all sites: kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.4f} ms, torch.gather on a prebuilt index "
+          f"{lib_ms:.4f} ms, {nbytes / 1e6:.2f} MB, bound {bound:.5f} ms "
+          f"(bytes) | {card}", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=lib_ms)
+
+
+def check_ola(torch, site, card: str) -> dict:
+    """[K7]: the overlap-add kernel against its twin at the [world] call's
+    shapes, its backward, and times."""
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import ola
+
+    (tidx, resp, out_len), _ = site
+    B, P, L = resp.shape
+    got = ola.overlap_add_cuda(tidx, resp, out_len)
+    again = ola.overlap_add_cuda(tidx, resp, out_len)
+    want = ola.overlap_add_plain(tidx, resp, out_len)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    # Each output sums up to a few tens of responses in float32 in another
+    # order than index_add's, so the two differ by rounding: within 1e-5
+    # of max|y|.  The kernel itself is deterministic.
+    check(err <= 1e-5 * scale,
+          f"K7 disagrees with its twin: {err} > 1e-5 * {scale}")
+    check(torch.equal(got, again), "K7 is not deterministic")
+    r = resp.clone().requires_grad_(True)
+    g = torch.randn(B, out_len, device=resp.device,
+                    generator=torch.Generator(resp.device).manual_seed(4))
+    ola.overlap_add(tidx, r, out_len).backward(g)
+    d_k = r.grad.clone()
+    r.grad = None
+    with twins():
+        ola.overlap_add(tidx, r, out_len).backward(g)
+    check(torch.equal(d_k, r.grad),
+          "K7 backward (a gather) is not equal to the twin's")
+    ms = cuda_ms(torch, lambda: ola.overlap_add_cuda(tidx, resp, out_len),
+                 100)
+    plain_ms = cuda_ms(torch, lambda: ola.overlap_add_plain(
+        tidx, resp, out_len), 20)
+    idx = (tidx[..., None].long() + torch.arange(L, device=resp.device)
+           + out_len * torch.arange(B, device=resp.device)[:, None, None]
+           ).reshape(-1)
+    flat = resp.reshape(-1)
+
+    def library():
+        return torch.zeros(B * out_len, device=resp.device).scatter_add_(
+            0, idx, flat)
+
+    lib_ms = cuda_ms(torch, library, 100)
+    nbytes = (resp.numel() + tidx.numel() + B * out_len) * 4.0
+    bound, by = bound_ms(nbytes, float(resp.numel()))
+    print(f"[K7] B={B} slots={P} L={L} out={out_len}: |kernel-twin| "
+          f"{err:.3e} (tol 1e-5 * max|y| = {1e-5 * scale:.3e}), two kernel "
+          f"runs equal; backward equal to the twin's; kernel {ms:.4f} ms, "
+          f"twin {plain_ms:.4f} ms, scatter_add_ on a prebuilt index "
+          f"{lib_ms:.4f} ms, {nbytes / 1e6:.2f} MB, bound {bound:.5f} ms "
+          f"({by}) | {card}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+class NoiseTape:
+    """Records the random draws of a WORLD call (the windowed waveform's
+    dither and the synthesis's slot noise) and replays row 0 of each, as
+    float64 on the CPU, in the same order: a float64 CPU run of one row
+    then sees the card's noise."""
+
+    def __init__(self, torch, wc, synth):
+        self.torch, self.wc, self.synth, self.tape = torch, wc, synth, []
+
+    def record(self):
+        dither, slot = self.wc.dither_noise, self.synth._slot_noise
+
+        def rec(fn):
+            def wrapped(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                self.tape.append(out)
+                return out
+            return wrapped
+
+        self.wc.dither_noise = rec(dither)
+        self.synth._slot_noise = rec(slot)
+        return lambda: (setattr(self.wc, "dither_noise", dither),
+                        delattr(self.synth, "_slot_noise"))
+
+    def replay(self, synth64):
+        dither = self.wc.dither_noise
+        tape = iter(self.tape)
+
+        def play(*args, **kwargs):
+            return next(tape)[:1].to(device="cpu",
+                                     dtype=self.torch.float64)
+
+        self.wc.dither_noise = play
+        synth64._slot_noise = play
+        return lambda: setattr(self.wc, "dither_noise", dither)
+
+
+def world_metrics(torch, xs, y):
+    """Per-row correlation of log energy envelopes (STFT 400/80/512,
+    tests/test_world.py) and the spectrogram correlation of row 0 in dB
+    (bench_all.py)."""
+    import diffsptk_tpu_torch as pt
+
+    stft = pt.STFT(400, 80, 512, device=xs.device, dtype=xs.dtype)
+    ex, ey = stft(xs).sum(-1), stft(y).sum(-1)
+    lx, ly = torch.log(ex + 1e-8), torch.log(ey + 1e-8)
+    lx, ly = lx - lx.mean(-1, keepdim=True), ly - ly.mean(-1, keepdim=True)
+    r = (lx * ly).sum(-1) / torch.sqrt((lx * lx).sum(-1) * (ly * ly).sum(-1))
+    sdb = pt.STFT(400, 80, 512, out_format="db", device=xs.device,
+                  dtype=xs.dtype)
+    Sx, Sy = sdb(xs[0]).double().cpu().numpy(), sdb(y[0]).double().cpu(
+    ).numpy()
+    return r.double().cpu().numpy(), float(np.corrcoef(Sx.ravel(),
+                                                       Sy.ravel())[0, 1])
+
+
+def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
+              full: bool) -> tuple[dict, list, list]:
+    """[world] / [world-tandem]: WorldVocoder on the card, float32.
+    Returns the launch counts and, when ``full``, the recorded gather and
+    overlap-add call sites of one call."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import gather, ola
+    from diffsptk_tpu_torch.ops import world_common as wc
+
+    B, T = xs.shape
+    voc = pt.WorldVocoder(ap_algorithm=ap_algorithm, device="cuda",
+                          dtype=torch.float32)
+    want = {"d4c": 3 + 8, "tandem": 3 + 1}[ap_algorithm]
+    gather_sites, ola_sites = [], []
+    with torch.no_grad():
+        gather.launches = ola.launches = 0
+        tape = NoiseTape(torch, wc, voc.synth)
+        undo = [tape.record(),
+                record_calls(gather, "gather_windows_cuda", gather_sites),
+                record_calls(ola, "overlap_add_cuda", ola_sites)]
+        f0, ap, sp = voc.analyze(xs)
+        y = voc.synthesize(f0, ap, sp, out_length=T)
+        torch.cuda.synchronize()
+        for u in undo:
+            u()
+        launches = {"gather": gather.launches, "ola": ola.launches}
+        check(launches == {"gather": want, "ola": 1},
+              f"{tag}: launches {launches}, expected gather {want}, ola 1")
+        check(tuple(y.shape) == (B, T) and bool(torch.isfinite(y).all()),
+              f"{tag}: output is not finite or has the wrong shape")
+        with twins():
+            f0_p, ap_p, sp_p = voc.analyze(xs)
+            y_p = voc.synthesize(f0_p, ap_p, sp_p, out_length=T)
+        torch.cuda.synchronize()
+        check(torch.equal(f0, f0_p), f"{tag}: f0 of the two paths differ")
+        # The analysis differs only in the gathers (copies): sp and ap must
+        # agree to rounding; y sums the overlap-add in another order.
+        err_sp = float(((sp - sp_p).abs() / sp_p.abs().amax(-1, True)).max())
+        err_ap = float((ap - ap_p).abs().max())
+        err_y = float((y - y_p).abs().max())
+        y_scale = float(y_p.abs().max())
+        check(err_sp <= 1e-5 and err_ap <= 1e-5,
+              f"{tag}: sp ({err_sp}) or ap ({err_ap}) of the kernel path "
+              f"disagrees with the twin path")
+        check(err_y <= 1e-5 * y_scale,
+              f"{tag}: y of the kernel path disagrees with the twin path: "
+              f"{err_y} > 1e-5 * {y_scale}")
+        r_env, r_spec = world_metrics(torch, xs, y)
+        check(bool((r_env > 0.8).all()),
+              f"{tag}: log-energy correlation below 0.8: {r_env.min()}")
+        f64 = ""
+        if full:
+            voc64 = pt.WorldVocoder(ap_algorithm=ap_algorithm, device="cpu",
+                                    dtype=torch.float64)
+            undo = tape.replay(voc64.synth)
+            f0_64, ap_64, sp_64 = voc64.analyze(xs[:1].double().cpu())
+            y64 = voc64.synthesize(f0_64, ap_64, sp_64, out_length=T)
+            undo()
+            f0_0 = f0[:1].double().cpu()
+            both = (f0_0 > 0) & (f0_64 > 0)
+            same_vuv = float(((f0_0 > 0) == (f0_64 > 0)).double().mean())
+            err_f0 = float(((f0_0 - f0_64).abs() / f0_64.clamp(min=1))[both]
+                           .max())
+            check(same_vuv >= 0.98 and err_f0 <= 1e-4,
+                  f"{tag}: f0 of row 0 against float64: voicing agrees on "
+                  f"{same_vuv:.3f}, relative f0 error {err_f0}")
+            d_ap = (ap[:1].double().cpu() - ap_64).abs()
+            # D4C's smoothing keeps a float64-exact running sum, so float32
+            # lands near float64 (a float32 running sum moved ap by 0.8).
+            check(float(d_ap.max()) <= 1e-3,
+                  f"{tag}: ap of row 0 is {float(d_ap.max())} from float64")
+            d_sp = float(((sp[:1].double().cpu() - sp_64).abs()
+                          / sp_64.abs().amax(-1, True)).max())
+            d_y = float((y[:1].double().cpu() - y64).abs().max())
+            r_ap = float(np.corrcoef(ap[:1].double().cpu().numpy().ravel(),
+                                     ap_64.numpy().ravel())[0, 1])
+            r_y = float(np.corrcoef(y[:1].double().cpu().numpy().ravel(),
+                                    y64.numpy().ravel())[0, 1])
+            f64 = (f"; row 0 against CPU float64 on the same noise: voicing "
+                   f"agrees on {same_vuv:.4f} of frames, f0 where both "
+                   f"voiced {err_f0:.3e} (tol 1e-4 relative), sp "
+                   f"{d_sp:.3e} of each frame's max, ap max "
+                   f"{float(d_ap.max()):.3e} (tol 1e-3), p95 "
+                   f"{float(d_ap.quantile(0.95)):.3e}, correlation "
+                   f"{r_ap:.4f}; y max {d_y:.3e} (max|y| "
+                   f"{float(y64.abs().max()):.3f}), correlation {r_y:.4f}")
+        calls = cuda_call_ms(torch, lambda: voc.analysis_synthesis(xs),
+                             20 if full else 10)
+        with twins():
+            plain_ms = cuda_ms(torch, lambda: voc.analysis_synthesis(xs), 2,
+                               warm=1)
+    med = float(np.median(calls))
+    p90 = float(np.percentile(calls, 90))
+    prof = ""
+    if full:
+        busy_ms, top, n_device = profile_chain(
+            torch, lambda: voc.analysis_synthesis(xs))
+        prof = (f"; device busy {busy_ms:.3f} ms ({100 * busy_ms / med:.1f} "
+                f"%) in {n_device:.0f} device functions per call; top device "
+                f"time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    print(f"[{tag}] B={B} T={T}: launches {launches}; kernel path against "
+          f"twin path: f0 equal, sp {err_sp:.3e} of each frame's max, ap "
+          f"{err_ap:.3e} (tol 1e-5), y {err_y:.3e} (tol 1e-5 * {y_scale:.3f})"
+          + f64 + f"; log-energy correlation with x per row: min "
+          f"{r_env.min():.4f}, mean {r_env.mean():.4f} (bar 0.8); "
+          f"spectrogram correlation of row 0 {r_spec:.4f}; median "
+          f"{med:.3f} ms per call (p90 {p90:.3f}, {len(calls)} calls), "
+          f"{B * T / (med * 1e-3):.1f} samples/s; twin path {plain_ms:.3f} "
+          f"ms" + prof + f" | {card}", flush=True)
+    return launches, gather_sites, ola_sites
+
+
+def world_grad(torch, xs, card: str) -> None:
+    """[world-grad]: one backward of a loss on y with respect to x, f0
+    detached, through the gather's and the overlap-add's backwards."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.kernels import gather, ola
+
+    voc = pt.WorldVocoder(ap_algorithm="d4c", device="cuda",
+                          dtype=torch.float32)
+    xg = xs[:4, :12800].clone().requires_grad_(True)
+    gather.launches = ola.launches = 0
+    (voc.analysis_synthesis(xg) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    counts = (gather.launches, ola.launches)
+    # forward: 11 gathers and 1 overlap-add; backward: an overlap-add for
+    # each gather and a gather for the overlap-add
+    check(counts == (12, 12),
+          f"[world-grad] launches (gather, ola) {counts}, expected (12, 12)")
+    gmax = float(xg.grad.abs().max())
+    check(bool(torch.isfinite(xg.grad).all()) and gmax > 0,
+          "WORLD gradient is not finite or is zero")
+    print(f"[world-grad] B=4 T=12800: gather launches {counts[0]}, "
+          f"overlap-add launches {counts[1]} (forward 11 + 1, backward 1 + "
+          f"11), finite, max|dL/dx| {gmax:.4e} | {card}", flush=True)
+
+
+def run_chain48(torch, card: str) -> dict:
+    """[chain48]: MelCepstralVocoder at 48 kHz, 5 ms frames, on the card:
+    its 200-tap stages fit one frame period, so both cascades take the
+    unchunked entry.  Taylor order 25: at alpha 0.55 the default order 20
+    does not converge on this speech, in the JAX package as in the port
+    (tests/test_torch_mlsa.py::test_mcep_vocoder_48k_taylor_order_matches_jax)."""
+    from diffsptk_tpu_torch import MelCepstralVocoder, twins
+    from diffsptk_tpu_torch.kernels import mlsa, newton
+
+    B, T, S = 32, 57600, 25
+    xs = torch.as_tensor(synth_speech(B, T, sr=48000), device="cuda")
+    voc = MelCepstralVocoder(frame_length=1200, frame_period=240,
+                             fft_length=2048, cep_order=24, alpha=0.55,
+                             taylor_order=S, cascade="fused", device="cuda",
+                             dtype=torch.float32)
+    with torch.no_grad():
+        newton.launches = mlsa.launches = mlsa.launches_unchunked = 0
+        y = voc.analysis_synthesis(xs)
+        torch.cuda.synchronize()
+        launches = {"newton": newton.launches,
+                    "mlsa_cascade": mlsa.launches,
+                    "mlsa_cascade_unchunked": mlsa.launches_unchunked}
+        check(launches == {"newton": 10, "mlsa_cascade": 0,
+                           "mlsa_cascade_unchunked": 2 * S},
+              f"[chain48] launches {launches}, expected Newton 10, "
+              f"unchunked cascade {2 * S}, chunked 0")
+        check(tuple(y.shape) == (B, T) and bool(torch.isfinite(y).all()),
+              "[chain48] output is not finite or has the wrong shape")
+        with twins():
+            y_p = voc.analysis_synthesis(xs)
+        torch.cuda.synchronize()
+        err_y = float((y - y_p).abs().max())
+        # Both float32 paths against a float64 run of all rows on the card
+        # (float64 takes the twins).  At this spectrum's dynamic range the
+        # Taylor terms of the cascades cancel heavily, and float32 rounding
+        # grows to 1-3 % of max|y| in either path (in the plain twin on the
+        # CPU too, whose mel-cepstra stay within 3e-6 of float64); so each
+        # path is held to float64, not to the other.
+        voc64 = MelCepstralVocoder(frame_length=1200, frame_period=240,
+                                   fft_length=2048, cep_order=24, alpha=0.55,
+                                   taylor_order=S, cascade="folded",
+                                   device="cuda", dtype=torch.float64)
+        y64 = voc64.analysis_synthesis(xs.double())
+
+        def snr_db(a, b):
+            a, b = a.double(), b.double()
+            return float(10 * torch.log10((a ** 2).sum()
+                                          / ((b - a) ** 2).sum()))
+
+        snr_k64, snr_p64 = snr_db(y64, y), snr_db(y64, y_p)
+        check(snr_k64 >= 30.0 and snr_p64 >= 30.0
+              and snr_k64 >= snr_p64 - 3.0,
+              f"[chain48] SNR against float64: kernel path {snr_k64:.2f} "
+              f"dB, twin path {snr_p64:.2f} dB (bar 30 dB each, kernel at "
+              f"most 3 dB below the twin)")
+        snr, snr_p = snr_db(xs, y), snr_db(xs, y_p)
+        snr_64 = snr_db(xs, y64)
+        check(snr > 20.0 and snr_p > 20.0,
+              f"[chain48] SNR of the kernel path {snr:.2f} dB, of the twin "
+              f"path {snr_p:.2f} dB: too low")
+        del y64
+        calls = cuda_call_ms(torch, lambda: voc.analysis_synthesis(xs), 30)
+        with twins():
+            plain_ms = cuda_ms(torch, lambda: voc.analysis_synthesis(xs), 2,
+                               warm=1)
+    med = float(np.median(calls))
+    p90 = float(np.percentile(calls, 90))
+    print(f"[chain48] B={B} T={T} (48 kHz, P=240, Taylor order {S}): "
+          f"launches {launches}; "
+          f"SNR against a float64 run on the card: kernel path "
+          f"{snr_k64:.2f} dB, twin path {snr_p64:.2f} dB (bar 30 dB, kernel "
+          f"at most 3 dB below the twin); |y kernel-twin| {err_y:.3e}; SNR "
+          f"against x: kernel path {snr:.2f} dB, twin path {snr_p:.2f} dB "
+          f"(bar 20 dB), float64 {snr_64:.2f} dB; median {med:.3f} ms per "
+          f"call (p90 {p90:.3f}, {len(calls)} calls), "
+          f"{B * T / (med * 1e-3):.1f} samples/s; twin path {plain_ms:.3f} "
+          f"ms | {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -438,7 +957,10 @@ def main() -> int:
             "spd_solve (n=24)": build.library(
                 "spd_solve").spd_solve_smem_bytes(24),
             "spd_solve (n=64)": build.library(
-                "spd_solve").spd_solve_smem_bytes(64)}
+                "spd_solve").spd_solve_smem_bytes(64),
+            "mlsa_cascade unchunked (P=240, K=384)": build.library(
+                "mlsa_cascade").mlsa_cascade_unchunked_smem_bytes(240, 384,
+                                                                  3)}
     print(f"[build] done in {time.time() - t0:.1f} s; dynamic shared memory "
           f"per block at the flagship shapes: {smem} bytes", flush=True)
 
@@ -504,20 +1026,10 @@ def main() -> int:
     nfft = lane_aligned_nfft(2 * P + M + 1)
     Q, nfft_c = chunked_geometry(M, P, nfft)
     K = nfft_c // 2 + 1
-    rng = np.random.default_rng(21)
-    x = rng.standard_normal((Bc, N * P)).astype(np.float32)
-    # Coefficients that decay slowly enough for every tap chunk to carry
-    # weight (the rms of each chunk is printed), with a stage gain near 1.
-    base = rng.standard_normal((Bc, 1, M + 1)) * (0.99 ** np.arange(M + 1))
-    c = (base * (1 + 0.05 * rng.standard_normal((Bc, N, M + 1))) * 0.04)
-    chunk_rms = [float(np.sqrt(np.mean(c[..., j * P:(j + 1) * P] ** 2)))
+    x_t, c_t, weights, a = cascade_case(torch, dev, Bc, N, P, M, S, seed=21)
+    # every tap chunk carries weight: the rms of each is printed
+    chunk_rms = [float(c_t[..., j * P:(j + 1) * P].pow(2).mean().sqrt())
                  for j in range(Q)]
-    w = 1.0 / np.arange(1, S + 1)
-    weights = torch.as_tensor(np.insert(w, 0, 1.0), dtype=torch.float32,
-                              device=dev)
-    a = torch.ones(S + 1, dtype=torch.float32, device=dev)
-    x_t = torch.as_tensor(x, device=dev)
-    c_t = torch.as_tensor(c.astype(np.float32), device=dev)
 
     def k2_kernel():
         return mlsa.cascade_chunked_cuda(x_t.reshape(Bc, N, P), c_t, weights,
@@ -536,20 +1048,7 @@ def main() -> int:
           f"K2 disagrees with its twin: {err_k2} > {tol2} * {scale}")
     k2_ms = cuda_ms(torch, full_precision(k2_kernel), 10)
     k2_plain_ms = cuda_ms(torch, full_precision(k2_plain), 5)
-    # The least work of a stage, not the kernel's DFT-plan method: per
-    # frame a 200-tap FIR blended between the filters of frames n and n+1.
-    # Directly that is 2 (M+1) 2 flops per sample; as an FFT convolution
-    # one real transform of the frame's L = P+M inputs and two inverse
-    # ones, at 2.5 L log2 L flops each, two complex products and the
-    # blend; plus one transform of each frame's c per call.  The lower
-    # count sets the bound.
-    L = P + M
-    rfft = 2.5 * L * np.log2(L)
-    per_frame = min(2 * (M + 1) * 2 * P,
-                    3 * rfft + 2 * 6 * (L // 2 + 1) + 3 * P)
-    flops = Bc * N * (S * per_frame + rfft)
-    k2_bound, k2_by = bound_ms((2 * Bc * N * P + Bc * N * (M + 1)) * 4.0,
-                               flops)
+    k2_bound, k2_by = cascade_bound(Bc, N, P, M, S)
     report["mlsa_cascade"] = dict(max_abs_err=err_k2, ms=k2_ms,
                                   plain_ms=k2_plain_ms, bound_ms=k2_bound,
                                   bound_by=k2_by, library_ms=None)
@@ -708,6 +1207,28 @@ def main() -> int:
     print(f"[lpc-grad] B=16 T=12800 (2,560 systems): solve launches "
           f"{solve.launches}, finite, max|dL/dx| {gmax:.4e}", flush=True)
 
+    # 12. K3: the unchunked cascade entry
+    report["mlsa_cascade_unchunked"] = check_unchunked(torch, dev, card)
+
+    # 14. and 13. the WORLD chain, then its kernels at its call sites
+    xw = torch.as_tensor(synth_speech(32, 19200), device=dev)
+    launches_w, gather_sites, ola_sites = run_world(torch, xw, card, "d4c",
+                                                    "world", full=True)
+    report["gather"] = check_gather(torch, gather_sites, card)
+    report["ola"] = check_ola(torch, ola_sites[0], card)
+    del gather_sites, ola_sites
+    report["gather"]["launches"] = launches_w["gather"]
+    report["ola"]["launches"] = launches_w["ola"]
+
+    # 15. and 16. TANDEM, and the gradient
+    run_world(torch, xw, card, "tandem", "world-tandem", full=False)
+    world_grad(torch, xw, card)
+
+    # 17. the 48 kHz chain
+    launches48 = run_chain48(torch, card)
+    report["mlsa_cascade_unchunked"]["launches"] = launches48[
+        "mlsa_cascade_unchunked"]
+
     kernels = []
     meta = {
         "newton": ("cuda", "diffsptk_tpu_torch/csrc/newton.cu",
@@ -718,6 +1239,13 @@ def main() -> int:
                       "diffsptk_tpu/kernels/pallas_solve.py:34"),
         "scan": ("cuda", "diffsptk_tpu_torch/csrc/scan.cu",
                  "diffsptk_tpu/kernels/pallas_scan.py:66"),
+        "mlsa_cascade_unchunked": (
+            "cuda", "diffsptk_tpu_torch/csrc/mlsa_cascade.cu",
+            "diffsptk_tpu/kernels/pallas_mlsa.py:119"),
+        "gather": ("cuda", "diffsptk_tpu_torch/csrc/gather.cu",
+                   "diffsptk_tpu/kernels/pallas_gather.py:34"),
+        "ola": ("cuda", "diffsptk_tpu_torch/csrc/ola.cu",
+                "diffsptk_tpu/kernels/pallas_ola.py:26"),
     }
     for key, (route, source, replaces) in meta.items():
         r = report[key]

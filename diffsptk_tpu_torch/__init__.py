@@ -10,7 +10,9 @@ which is what a CPU tensor runs.  The package never imports JAX.
 from .core import BaseOp, Design
 from .kernels.state import twins
 from .models.mcep_vocoder import MelCepstralVocoder
+from .models.world_vocoder import WorldVocoder
 from .ops.acorr import Autocorrelation
+from .ops.ap import Aperiodicity
 from .ops.fftr import RealValuedFastFourierTransform
 from .ops.frame import Frame
 from .ops.freqt import FrequencyTransform
@@ -26,6 +28,8 @@ from .ops.mglsadf import (
     PseudoInverseMGLSADigitalFilter,
     PseudoMGLSADigitalFilter,
 )
+from .ops.pitch import Pitch
+from .ops.pitch_spec import PitchAdaptiveSpectralAnalysis
 from .ops.parcor import (
     AllPoleToAllZeroDigitalFilterCoefficients,
     AllZeroToAllPoleDigitalFilterCoefficients,
@@ -34,6 +38,7 @@ from .ops.poledf import AllPoleDigitalFilter
 from .ops.spec import Spectrum
 from .ops.stft import ShortTimeFourierTransform
 from .ops.window import Window
+from .ops.world_synth import WorldSynthesis
 from .ops.zerodf import AllZeroDigitalFilter
 from .utils.carry import load_jax_params
 
@@ -47,6 +52,7 @@ __all__ = [
     "AllPoleToAllZeroDigitalFilterCoefficients",
     "AllZeroDigitalFilter",
     "AllZeroToAllPoleDigitalFilterCoefficients",
+    "Aperiodicity",
     "Autocorrelation",
     "BaseOp",
     "CoefficientsFrequencyTransform",
@@ -63,6 +69,8 @@ __all__ = [
     "MelCepstralAnalysis",
     "MelCepstralVocoder",
     "MelGeneralizedCepstrumToMelGeneralizedCepstrum",
+    "Pitch",
+    "PitchAdaptiveSpectralAnalysis",
     "PseudoInverseMGLSADigitalFilter",
     "PseudoMGLSADigitalFilter",
     "RealValuedFastFourierTransform",
@@ -71,6 +79,8 @@ __all__ = [
     "ShortTimeFourierTransform",
     "Spectrum",
     "Window",
+    "WorldSynthesis",
+    "WorldVocoder",
     "load_jax_params",
     "twins",
 ]

@@ -1,10 +1,16 @@
-// One stage of the tap-chunked Taylor MLSA cascade, for sm_90a.
+// One stage of the Taylor MLSA cascade, for sm_90a, in two entries.
 //
-// Replaces: diffsptk_tpu/kernels/pallas_mlsa.py:_chunked_kernel_b3 and
-// _chunked_kernel (reached through _cascade_pallas_chunked / taylor_cascade).
+// Replaces, through mlsa_cascade_stage_f32 (tap-chunked, B2):
+// diffsptk_tpu/kernels/pallas_mlsa.py:_chunked_kernel_b3 and _chunked_kernel
+// (reached through _cascade_pallas_chunked / taylor_cascade); through
+// mlsa_cascade_unchunked_stage_f32 (monolithic, B3):
+// pallas_mlsa.py:_cascade_kernel_b3 and _cascade_kernel (reached through
+// _cascade_pallas / taylor_cascade).
 //
-// Computes stage s of kernels/mlsa_cascade.py:taylor_cascade_folded's
-// chunked branch on the (B, N, P) frame grid:
+// Computes stage s of kernels/mlsa_cascade.py:taylor_cascade_folded on the
+// (B, N, P) frame grid, chunked branch (Q tap chunks of P taps on the short
+// transform) or unchunked branch (Q = 1: all M+1 taps on the full
+// transform, nfft >= 2P+M+1, with the full (n_blk, P, 2K) plans):
 //   X[e]  = sum_r xpad[e + r] @ F[r]                  (n_blk plan blocks)
 //   Y[n]  = sum_j X[n + Q-1-j] * C[n, j]               (complex, Q chunks)
 //   V[n]  = Yre[n] @ Gre + Yim[n] @ Gim                (K, 3P) inverse plans
@@ -23,19 +29,28 @@
 // 11 MB of x, y and c.
 // This kernel's DFT-plan method does more: per frame and stage the forward
 // plans take 2 n_blk P 2K flops, the inverse 2 (2K) 2P and the chunk
-// products 8 Q K, about 208 kflop at P = 80, K = 128, n_blk = 3, Q = 3.
+// products 8 Q K, about 208 kflop at P = 80, K = 128, n_blk = 3, Q = 3,
+// and about 1.8 Mflop at the 48 kHz unchunked geometry (P = 240, M = 199,
+// K = 384, n_blk = 3), whose least work is 2 (M+1) 2 P = 192 kflop
+// directly or about 32 kflop as an FFT convolution.
 //
 // Design: one launch per stage.  Stage s+1 of frame n reads stage s of
 // frames n-r0-Q+1 .. n+n_blk-r0, so a block cannot run ahead of its
 // neighbours; the (B, N, P) state ping-pongs between two buffers in device
 // memory (2.4 MB at the flagship, so it stays in the 50 MB L2 between
-// launches).  A block owns TF = kRows - Q output frames of one batch row.
+// launches).  A block owns TF = kRows - Q output frames of one batch row;
+// kRows is a template parameter, 36 for the chunked entry; the unchunked
+// entry takes 36 where two such blocks share an SM (K = 128, P = 80), else
+// 12 (K = 384, P = 240, where 36 rows of X, Y and the state would need
+// 253 KB, more than a block may hold), and rejects a geometry at which 12
+// rows do not fit.
 // It loads the state rows it needs, halo included, into shared memory
 // (zero outside the row: batch rows are independent, so no gap rows), then
 // computes its kRows X rows, its TF+1 Y rows and the V rows in turn.  The
 // two plan products are the bulk of the work.  In each, a thread keeps a
-// 9-row x 4-column tile of the result in registers: one shared-memory
-// float4 feeds 16 FMAs, and a plan float4 read from L2 feeds 36.  Reading a
+// kRows/4-row x 4-column tile of the result in registers: one shared-memory
+// float4 feeds 16 FMAs, and a plan float4 read from L2 feeds kRows (36 at
+// the chunked tile).  Reading a
 // shared operand per FMA group would make shared-memory traffic, not the
 // FMAs, the limit.  A warp covers 8 column groups x 4 row groups (padded
 // row strides put the 4 rows on distinct banks), so threads left without
@@ -52,11 +67,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 36;         // X rows per tile: TF output frames + Q
-constexpr int kRowGroups = 4;     // thread tile: kTileRows rows x 4 columns
-constexpr int kTileRows = kRows / kRowGroups;
+constexpr int kChunkedRows = 36;  // X rows per tile of the chunked entry
+constexpr int kRowGroups = 4;     // thread tile: kRows/4 rows x 4 columns
 constexpr int kColGroups = kThreads / kRowGroups;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+// Two blocks fit on one SM (228 KB, 1 KB reserved per block) up to this.
+constexpr int kTwoPerSm = 228 * 1024 / 2 - 1024;
 
 __host__ __device__ constexpr int up4(int v) { return (v + 3) & ~3; }
 
@@ -67,7 +83,8 @@ struct Layout {
   int PS, VS, YS, NS, NV, xs, x, y, floats;
 };
 
-__host__ __device__ inline Layout layout(int P, int K, int Q, int n_blk) {
+__host__ __device__ inline Layout layout(int kRows, int P, int K, int Q,
+                                         int n_blk) {
   Layout l;
   l.PS = up4(P) + 4;        // state row stride (zero past P)
   l.VS = up4(3 * P);        // V row stride
@@ -82,6 +99,7 @@ __host__ __device__ inline Layout layout(int P, int K, int Q, int n_blk) {
   return l;
 }
 
+template <int kRows>
 __global__ void __launch_bounds__(kThreads, 2)
 stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
              float* __restrict__ xout, float* __restrict__ y,
@@ -89,8 +107,15 @@ stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
              const float* __restrict__ F, const float* __restrict__ Gre,
              const float* __restrict__ Gim, const float* __restrict__ wa,
              int N, int P, int K, int Q, int n_blk, int r0, int S, int s) {
+  constexpr int kTileRows = kRows / kRowGroups;
+  // Where registers allow (the 12-row tile), each forward plan block and
+  // each half of the inverse sums into its own accumulators, as the twin's
+  // separate matmuls do: in the cascades' cancelling Taylor terms a single
+  // 720- or 768-term float32 sum cost 5 dB of round-trip accuracy against
+  // the twin.  The 36-row tile has no registers to spare.
+  constexpr bool kSplit = kTileRows <= 3;
   extern __shared__ __align__(16) float smem[];
-  const Layout l = layout(P, K, Q, n_blk);
+  const Layout l = layout(kRows, P, K, Q, n_blk);
   const int TF = kRows - Q;
   const int NV = l.NV;
   const int K2 = 2 * K, P3 = 3 * P;
@@ -130,6 +155,12 @@ stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
     for (int r = 0; r < n_blk; ++r) {
       const float* Fr = F + static_cast<size_t>(r) * P * K2 + c0;
       const float* xr = xs + (i0 + r) * PS;
+      float part[kTileRows][4];
+#pragma unroll
+      for (int ii = 0; ii < kTileRows; ++ii) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[ii][q] = kSplit ? 0.f : acc[ii][q];
+      }
       for (int p = 0; p < P; p += 4) {
         float f[4][4];
 #pragma unroll
@@ -146,13 +177,20 @@ stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
           const float4 xv = *reinterpret_cast<const float4*>(xr + ii * PS + p);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            float t = acc[ii][q];
+            float t = part[ii][q];
             t = fmaf(xv.x, f[0][q], t);
             t = fmaf(xv.y, f[1][q], t);
             t = fmaf(xv.z, f[2][q], t);
             t = fmaf(xv.w, f[3][q], t);
-            acc[ii][q] = t;
+            part[ii][q] = t;
           }
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < kTileRows; ++ii) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[ii][q] = kSplit ? acc[ii][q] + part[ii][q] : part[ii][q];
         }
       }
     }
@@ -194,11 +232,11 @@ stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
 #ifndef MLSA_ABLATE_INVERSE
   const int ncol = (n0 + TF >= N) ? P3 : 2 * P;
   for (int c0 = 4 * cg; c0 < ncol; c0 += 4 * kColGroups) {
-    float acc[kTileRows][4];
+    float acc[kTileRows][4], acc_im[kTileRows][4];  // acc_im: kSplit only
 #pragma unroll
     for (int ii = 0; ii < kTileRows; ++ii) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[ii][q] = 0.f;
+      for (int q = 0; q < 4; ++q) acc[ii][q] = acc_im[ii][q] = 0.f;
     }
     for (int k = 0; k < K; k += 4) {
       float gr[4][4], gi[4][4];
@@ -240,16 +278,26 @@ stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
           t = fmaf(a.y, gr[1][q], t);
           t = fmaf(a.z, gr[2][q], t);
           t = fmaf(a.w, gr[3][q], t);
-          t = fmaf(m.x, gi[0][q], t);
-          t = fmaf(m.y, gi[1][q], t);
-          t = fmaf(m.z, gi[2][q], t);
-          t = fmaf(m.w, gi[3][q], t);
-          acc[ii][q] = t;
+          float u = kSplit ? acc_im[ii][q] : t;
+          u = fmaf(m.x, gi[0][q], u);
+          u = fmaf(m.y, gi[1][q], u);
+          u = fmaf(m.z, gi[2][q], u);
+          u = fmaf(m.w, gi[3][q], u);
+          if (kSplit) {
+            acc[ii][q] = t;
+            acc_im[ii][q] = u;
+          } else {
+            acc[ii][q] = u;
+          }
         }
       }
     }
 #pragma unroll
     for (int ii = 0; ii < kTileRows; ++ii) {
+      if (kSplit) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[ii][q] += acc_im[ii][q];
+      }
       *reinterpret_cast<float4*>(V + (i0 + ii) * VS + c0) =
           make_float4(acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]);
     }
@@ -276,10 +324,57 @@ stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
   }
 }
 
+template <int kRows>
+int launch_stage(const void* xin, const void* x0, void* xout, void* y,
+                 const void* cre, const void* cim, const void* F,
+                 const void* Gre, const void* Gim, const void* wa, int B,
+                 int N, int P, int K, int Q, int n_blk, int r0, int S, int s,
+                 void* stream) {
+  const int bytes =
+      layout(kRows, P, K, Q, n_blk).floats * static_cast<int>(sizeof(float));
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // Above 48 KB dynamic shared memory needs the opt-in attribute, set
+  // once per instance to the most a block may use.
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stage_kernel<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_set = true;
+  }
+  const int TF = kRows - Q;
+  const dim3 grid((N + TF - 1) / TF, B);
+  stage_kernel<kRows>
+      <<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(xin), static_cast<const float*>(x0),
+          static_cast<float*>(xout), static_cast<float*>(y),
+          static_cast<const float*>(cre), static_cast<const float*>(cim),
+          static_cast<const float*>(F), static_cast<const float*>(Gre),
+          static_cast<const float*>(Gim), static_cast<const float*>(wa), N, P,
+          K, Q, n_blk, r0, S, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid_args(int B, int N, int P, int K, int Q, int n_blk, int r0, int S,
+                int s) {
+  return B >= 1 && N >= 1 && P >= 1 && K >= 4 && K % 4 == 0 && Q >= 1 &&
+         n_blk >= 1 && r0 >= 0 && s >= 1 && s <= S;
+}
+
+// Row tile of the unchunked entry: 36 rows where two blocks share an SM,
+// else 12 where a block fits, else 0 (the geometry is refused).
+int unchunked_rows(int P, int K, int n_blk) {
+  if (layout(36, P, K, 1, n_blk).floats * 4 <= kTwoPerSm) return 36;
+  if (layout(12, P, K, 1, n_blk).floats * 4 <= kMaxSmem) return 12;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int mlsa_cascade_smem_bytes(int P, int K, int Q, int n_blk) {
-  return layout(P, K, Q, n_blk).floats * static_cast<int>(sizeof(float));
+  return layout(kChunkedRows, P, K, Q, n_blk).floats *
+         static_cast<int>(sizeof(float));
 }
 
 extern "C" int mlsa_cascade_stage_f32(
@@ -287,29 +382,42 @@ extern "C" int mlsa_cascade_stage_f32(
     const void* cim, const void* F, const void* Gre, const void* Gim,
     const void* wa, int B, int N, int P, int K, int Q, int n_blk, int r0,
     int S, int s, void* stream) {
-  if (B < 1 || N < 1 || P < 1 || K < 4 || K % 4 != 0 || Q < 1 || Q >= kRows ||
-      n_blk < 1 || r0 < 0 || s < 1 || s > S) {
+  if (!valid_args(B, N, P, K, Q, n_blk, r0, S, s) || Q >= kChunkedRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bytes = mlsa_cascade_smem_bytes(P, K, Q, n_blk);
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  // Above 48 KB dynamic shared memory needs the opt-in attribute, set
-  // once to the most a block may use.
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attribute_set = true;
+  return launch_stage<kChunkedRows>(xin, x0, xout, y, cre, cim, F, Gre, Gim,
+                                    wa, B, N, P, K, Q, n_blk, r0, S, s,
+                                    stream);
+}
+
+// The unchunked (B3) geometry: one chunk of all M+1 taps on the full
+// transform, so Q = 1 and the row tile follows K and P.
+extern "C" int mlsa_cascade_unchunked_rows(int P, int K, int n_blk) {
+  return unchunked_rows(P, K, n_blk);
+}
+
+extern "C" int mlsa_cascade_unchunked_smem_bytes(int P, int K, int n_blk) {
+  const int r = unchunked_rows(P, K, n_blk);
+  return r ? layout(r, P, K, 1, n_blk).floats * static_cast<int>(sizeof(float))
+           : -1;
+}
+
+extern "C" int mlsa_cascade_unchunked_stage_f32(
+    const void* xin, const void* x0, void* xout, void* y, const void* cre,
+    const void* cim, const void* F, const void* Gre, const void* Gim,
+    const void* wa, int B, int N, int P, int K, int n_blk, int r0, int S,
+    int s, void* stream) {
+  if (!valid_args(B, N, P, K, 1, n_blk, r0, S, s)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int TF = kRows - Q;
-  const dim3 grid((N + TF - 1) / TF, B);
-  stage_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xin), static_cast<const float*>(x0),
-      static_cast<float*>(xout), static_cast<float*>(y),
-      static_cast<const float*>(cre), static_cast<const float*>(cim),
-      static_cast<const float*>(F), static_cast<const float*>(Gre),
-      static_cast<const float*>(Gim), static_cast<const float*>(wa), N, P, K,
-      Q, n_blk, r0, S, s);
-  return static_cast<int>(cudaGetLastError());
+  switch (unchunked_rows(P, K, n_blk)) {
+    case 36:
+      return launch_stage<36>(xin, x0, xout, y, cre, cim, F, Gre, Gim, wa, B,
+                              N, P, K, 1, n_blk, r0, S, s, stream);
+    case 12:
+      return launch_stage<12>(xin, x0, xout, y, cre, cim, F, Gre, Gim, wa, B,
+                              N, P, K, 1, n_blk, r0, S, s, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -13,9 +13,10 @@ framing, the DFT and the lerp blend folded into static matmul plans:
 
 Long filters (M+1 > P) are tap-chunked: ``y[s] = sum_j (c[jP:jP+P] *
 x)[s - jP]``, every chunk on the small (P-1) geometry whose forward
-transform is a row shift of one shared plan.  That branch,
-:func:`taylor_cascade_chunked`, is the plain twin of the CUDA cascade
-kernel (kernels/mlsa.py).
+transform is a row shift of one shared plan.  The two branches,
+:func:`taylor_cascade_chunked` and :func:`taylor_cascade_unchunked`, are
+the plain twins of the CUDA cascade kernel's two entries
+(kernels/mlsa.py).
 """
 
 from __future__ import annotations
@@ -221,25 +222,18 @@ def taylor_cascade_chunked(x: torch.Tensor, c: torch.Tensor,
     return y.reshape(x.shape[:-1] + (T,))
 
 
-def taylor_cascade_folded(x: torch.Tensor, c: torch.Tensor,
-                          weights: torch.Tensor, a: torch.Tensor,
-                          P: int, advance: int, nfft: int,
-                          precision=None) -> torch.Tensor:
-    """Taylor-cascade MLSA filter, folded-plan formulation.
+def taylor_cascade_unchunked(x: torch.Tensor, c: torch.Tensor,
+                             weights: torch.Tensor, a: torch.Tensor, P: int,
+                             advance: int, nfft: int) -> torch.Tensor:
+    """The monolithic cascade: all M+1 taps on the full transform of
+    length ``nfft`` (>= 2P+M+1).  The plain twin of the CUDA cascade
+    kernel's unchunked entry (kernels/mlsa.py).
 
-    x (..., T) float; c (..., N, M+1) stage coefficients (shared across
-    stages); weights/a (S+1,) Taylor stage weights.  Every matmul runs in
-    full precision; ``precision`` is accepted for the JAX signature.
+    x (..., T); c (..., N, M+1); weights/a (S+1,).
     """
     M = c.shape[-1] - 1
     T = x.shape[-1]
     N = c.shape[-2]
-
-    chunked = chunked_geometry(M, P, nfft)
-    if chunked is not None:
-        return taylor_cascade_chunked(x, c, weights, a, P, advance,
-                                      chunked[1])
-
     xq = x.reshape(x.shape[:-1] + (N, P))
     K = nfft // 2 + 1
     Ffwd, Ginv_re, Ginv_im, r0, n_blk = plans(nfft, M, P, advance, x.dtype,
@@ -253,3 +247,22 @@ def taylor_cascade_folded(x: torch.Tensor, c: torch.Tensor,
                     P, K) * weights[s]
         y = y + a[s] * xq
     return y.reshape(x.shape[:-1] + (T,))
+
+
+def taylor_cascade_folded(x: torch.Tensor, c: torch.Tensor,
+                          weights: torch.Tensor, a: torch.Tensor,
+                          P: int, advance: int, nfft: int,
+                          precision=None) -> torch.Tensor:
+    """Taylor-cascade MLSA filter, folded-plan formulation.
+
+    x (..., T) float; c (..., N, M+1) stage coefficients (shared across
+    stages); weights/a (S+1,) Taylor stage weights.  Every matmul runs in
+    full precision; ``precision`` is accepted for the JAX signature.
+    """
+    M = c.shape[-1] - 1
+    chunked = chunked_geometry(M, P, nfft)
+    if chunked is not None:
+        return taylor_cascade_chunked(x, c, weights, a, P, advance,
+                                      chunked[1])
+
+    return taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft)

@@ -9,8 +9,10 @@ Marked ``gpu``; without a card every test skips (decided in the
 port's machine need not have).  This file imports no JAX.
 
 Tolerances: the Newton kernel within 2e-4 (rtol and atol) of its twin,
-the cascade kernel within 1e-5 of max|y| (fp32 arithmetic in another
-order than the twin's matmuls); the SPD solve kernel within 1e-4 of
+the cascade kernel (both entries) within 1e-5 of max|y| (fp32 arithmetic
+in another order than the twin's matmuls); the windowed gather equal to
+its twin (a copy); the overlap-add and the gather's backward within 1e-5
+of their twins (sums in another order than index_add's); the SPD solve kernel within 1e-4 of
 max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
 within 2e-5 (float32) and 1e-4 (complex64) of its twin, its backward
 within 1e-4 (the tolerances of tests/test_pallas_scan.py).
@@ -23,12 +25,14 @@ import pytest
 import torch
 
 import diffsptk_tpu_torch as pt
-from diffsptk_tpu_torch.kernels import mlsa, newton, scan, solve
+from chip_smoke import synth_speech
+from diffsptk_tpu_torch.kernels import gather, mlsa, newton, ola, scan, solve
 from diffsptk_tpu_torch.kernels.mlsa_cascade import (
     chunked_geometry,
     lane_aligned_nfft,
     taylor_cascade_chunked,
     taylor_cascade_folded,
+    taylor_cascade_unchunked,
 )
 
 pytestmark = pytest.mark.gpu
@@ -323,3 +327,140 @@ def test_first_order_poledf_takes_the_scan_kernel(cuda):
                                        dtype=torch.float64)
     poledf64(x.double(), a.double())
     assert scan.launches == before + 1
+
+
+@pytest.mark.parametrize("B,N,P,M,S", [(32, 240, 240, 199, 20),
+                                       (32, 240, 80, 79, 20),
+                                       (2, 13, 16, 39, 4),
+                                       (3, 9, 18, 50, 3)])
+def test_unchunked_cascade_kernel_matches_twin(cuda, B, N, P, M, S):
+    """The B3 entry at both chip_smoke [K3] geometries, a padded half
+    spectrum (nfft 128, K = 65) and P not a multiple of 4."""
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=5)
+    nfft = (lane_aligned_nfft(2 * P + M + 1) if P >= 80
+            else 1 << int(np.ceil(np.log2(2 * P + M + 1))))
+    assert chunked_geometry(M, P, nfft) is None
+    before = mlsa.launches_unchunked
+    y = mlsa.cascade_unchunked_cuda(x.reshape(B, N, P), c, weights, a, P, 0,
+                                    nfft)
+    assert mlsa.launches_unchunked == before + S
+    want = taylor_cascade_unchunked(x, c, weights, a, P, 0, nfft)
+    _assert_cascade_close(y.reshape(B, N * P), want)
+
+
+def test_unchunked_cascade_refuses_a_tile_too_large(cuda):
+    """At nfft 2,400 (K = 1,201) a 12-row tile of the B3 entry needs 245
+    KB of shared memory, more than a block may hold: the entry refuses the
+    geometry."""
+    x, c, weights, a = _cascade_case(cuda, 1, 4, 240, 199, 2, seed=5)
+    with pytest.raises(RuntimeError, match="mlsa_cascade stage"):
+        mlsa.cascade_unchunked_cuda(x.reshape(1, 4, 240), c, weights, a, 240,
+                                    0, 2400)
+
+
+def test_vocoder_48k_takes_the_unchunked_kernel(cuda):
+    """MelCepstralVocoder(frame_period=240, cascade="fused") at 48 kHz:
+    the Newton kernel and the unchunked cascade entry, no chunked one."""
+    voc = pt.MelCepstralVocoder(frame_length=1200, frame_period=240,
+                                fft_length=2048, cep_order=24, alpha=0.55,
+                                cascade="fused", device=cuda,
+                                dtype=torch.float32)
+    x = torch.randn(2, 9600, **_f32(cuda, 7))
+    newton.launches = mlsa.launches = mlsa.launches_unchunked = 0
+    y = voc.analysis_synthesis(x)
+    assert (newton.launches, mlsa.launches_unchunked, mlsa.launches) == (
+        10, 40, 0)
+    with pt.twins():
+        want = voc.analysis_synthesis(x)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    assert float((y - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,T,N,length,lo,hi", [(32, 30000, 241, 514, 0, 29486),
+                                                (3, 500, 40, 64, -90, 480),
+                                                (2, 50, 9, 200, -20, 60)])
+def test_gather_kernel_matches_twin(cuda, B, T, N, length, lo, hi):
+    """Exact, with starts clamped at both edges and windows longer than
+    the row."""
+    x = torch.randn(B, T, **_f32(cuda, 8))
+    s = torch.randint(lo, hi, (B, N), device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(9))
+    before = gather.launches
+    got = gather.gather_windows(x, s, length)
+    assert gather.launches == before + 1
+    assert torch.equal(got, gather.gather_windows_plain(x, s, length))
+
+
+def test_gather_kernel_backward(cuda):
+    """The adjoint through the overlap-add kernel, clamped overhangs
+    folded onto the edge samples; sums in another order than the twin's
+    index_add, so within 1e-5."""
+    x = torch.randn(4, 3000, **_f32(cuda, 10)).requires_grad_(True)
+    s = torch.randint(-300, 3100, (4, 200), device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(11))
+    g = torch.randn(4, 200, 257, **_f32(cuda, 12))
+    before = (gather.launches, ola.launches)
+    gather.gather_windows(x, s, 257).backward(g)
+    assert (gather.launches, ola.launches) == (before[0] + 1, before[1] + 1)
+    got = x.grad.clone()
+    x.grad = None
+    with pt.twins():
+        gather.gather_windows(x, s, 257).backward(g)
+    torch.testing.assert_close(got, x.grad, rtol=1e-5, atol=1e-5)
+
+
+def _slots(cuda, B, P, L, out_len, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    t = torch.randint(0, out_len - L + 1, (B, P), device=cuda, generator=gen)
+    t = torch.sort(t, dim=-1).values
+    if P > 6:
+        t[:, -5:] = t[:, -6:-5]      # repeats, as WORLD's invalid slots
+    return t
+
+
+@pytest.mark.parametrize("B,P,L,out_len", [(32, 743, 1024, 20224),
+                                           (3, 50, 100, 700),
+                                           (1, 5, 33, 33)])
+def test_ola_kernel_matches_twin(cuda, B, P, L, out_len):
+    """Deterministic: two launches agree bit for bit; against the twin
+    (index_add, in another order) within 1e-5."""
+    t = _slots(cuda, B, P, L, out_len, 13)
+    r = torch.randn(B, P, L, **_f32(cuda, 14))
+    before = ola.launches
+    got = ola.overlap_add(t, r, out_len)
+    assert ola.launches == before + 1
+    assert torch.equal(got, ola.overlap_add(t, r, out_len))
+    torch.testing.assert_close(got, ola.overlap_add_plain(t, r, out_len),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_ola_kernel_backward_and_range_check(cuda):
+    t = _slots(cuda, 2, 60, 128, 2000, 15)
+    r = torch.randn(2, 60, 128, **_f32(cuda, 16)).requires_grad_(True)
+    g = torch.randn(2, 2000, **_f32(cuda, 17))
+    before = gather.launches
+    ola.overlap_add(t, r, 2000).backward(g)
+    assert gather.launches == before + 1
+    assert torch.equal(r.grad, gather.gather_windows_plain(g, t, 128))
+    with pytest.raises(ValueError, match="lie in"):
+        ola.overlap_add(t + 2000, r, 2000)
+    with pytest.raises(ValueError, match="nondecreasing"):
+        ola.overlap_add(torch.flip(t, (-1,)), r, 2000)
+
+
+def test_world_vocoder_takes_gather_and_ola(cuda):
+    """WorldVocoder on the card in float32: the windowed gathers of
+    CheapTrick (3) and D4C (8), one overlap-add; float64 takes the
+    twins."""
+    x = torch.as_tensor(synth_speech(2, 4000), device=cuda)
+    voc = pt.WorldVocoder(ap_algorithm="d4c", device=cuda,
+                          dtype=torch.float32)
+    gather.launches = ola.launches = 0
+    y = voc.analysis_synthesis(x)
+    assert (gather.launches, ola.launches) == (11, 1)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    voc64 = pt.WorldVocoder(ap_algorithm="tandem", device=cuda,
+                            dtype=torch.float64)
+    y64 = voc64.analysis_synthesis(x.double())
+    assert (gather.launches, ola.launches) == (11, 1)
+    assert torch.isfinite(y64).all()

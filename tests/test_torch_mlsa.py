@@ -3,8 +3,9 @@ Taylor cascade (plain twin of the CUDA kernel), gnorm, linear
 interpolation, mgc2mgc, the all-zero filter and MLSA / IMLSA.
 
 Tolerances: rtol 1e-5 / atol 1e-8 at float64 (tests/utils.py); the
-cascade twin against the Pallas kernel in interpret mode at 1e-5 (HIGHEST)
-and 2e-4 (HIGH) of max|y|, as tests/test_pallas_mlsa.py holds it."""
+cascade twins against the Pallas kernels in interpret mode as
+tests/test_pallas_mlsa.py holds them: the tap-chunked one at 1e-5
+(HIGHEST) and 2e-4 (HIGH) of max|y|, the unchunked one at 2e-4."""
 
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from diffsptk_tpu_torch.kernels.mlsa_cascade import (
     lane_aligned_nfft,
     taylor_cascade_chunked,
     taylor_cascade_folded,
+    taylor_cascade_unchunked,
 )
 from diffsptk_tpu_torch.ops.linear_intpl import linear_interpolate
 
@@ -217,3 +219,114 @@ def test_not_ported_paths_raise():
             pt.MLSA(4, 8, mode=mode, **F64)
     with pytest.raises(NotImplementedError):
         pt.MLSA(4, 8, cascade="stages", **F64)
+
+
+@pytest.mark.parametrize("B,N,P,M,S,advance",
+                         [(2, 6, 16, 39, 4, 0),
+                          (1, 5, 16, 30, 3, 5),
+                          (3, 4, 32, 63, 6, 0)])
+def test_unchunked_twin_matches_pallas_interpret(B, N, P, M, S, advance):
+    """The monolithic geometry (B3): the twin of the kernel's unchunked
+    entry against the Pallas kernel it replaces, at the shapes and
+    tolerance of tests/test_pallas_mlsa.py."""
+    from diffsptk_tpu.kernels.pallas_mlsa import _cascade_pallas, _pad128
+
+    nfft = 1 << int(np.ceil(np.log2(2 * P + M + 1)))
+    x, c, weights, a = _case(B, N, P, M, S)
+    K = nfft // 2 + 1
+    cspec = np.fft.rfft(c, n=nfft)
+    pad = [(0, 0), (0, 0), (0, _pad128(K) - K)]
+    cre = jnp.asarray(np.pad(cspec.real.astype(np.float32), pad))
+    cim = jnp.asarray(np.pad(cspec.imag.astype(np.float32), pad))
+    want = np.asarray(_cascade_pallas(
+        jnp.asarray(x.reshape(B, N, P)), cre, cim, jnp.asarray(weights),
+        jnp.asarray(a), P, M, advance, nfft,
+        interpret=True)).reshape(B, N * P)
+    got = taylor_cascade_unchunked(*_t(x, c, weights, a), P, advance,
+                                   nfft).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-4 * float(np.abs(want).max()))
+
+
+def test_unchunked_plans_pad_the_half_spectrum():
+    """The kernel's plans are cascade_plan's, the half spectrum padded
+    with zero bins to a multiple of 4 (K = 65 -> 68)."""
+    F, Gre, Gim, r0, n_blk, K = mlsa.unchunked_plans(128, 39, 16, 0, "cpu")
+    Ffwd, Ginv_re, Ginv_im, r0_, n_blk_ = cascade_plan(128, 39, 16, 0)
+    assert (r0, n_blk, K) == (r0_, n_blk_, 65) and F.shape == (n_blk, 16, 136)
+    np.testing.assert_allclose(F[..., :65].numpy(), Ffwd[..., :65], atol=1e-7)
+    np.testing.assert_allclose(F[..., 68:133].numpy(), Ffwd[..., 65:],
+                               atol=1e-7)
+    assert not F[..., 65:68].any() and not F[..., 133:].any()
+    np.testing.assert_allclose(Gre[:65].numpy(), Ginv_re, atol=1e-7)
+    np.testing.assert_allclose(Gim[:65].numpy(), Ginv_im, atol=1e-7)
+    assert not Gre[65:].any() and not Gim[65:].any()
+    # the 48 kHz geometry: K = 384 needs no padding
+    assert mlsa.unchunked_plans(766, 199, 240, 0, "cpu")[0].shape == (
+        3, 240, 768)
+
+
+def test_cascade_entry_unchunked_geometry_and_backward():
+    """taylor_cascade where the chunked transform is not smaller (one tap
+    chunk, P=240, M=199): a CPU tensor runs the twin, no kernel counts,
+    and the backward is the JAX VJP of the folded form."""
+    B, N, P, M, S, advance = 1, 3, 240, 199, 3, 0
+    x, c, weights, a = _case(B, N, P, M, S, np.float64)
+    nfft = lane_aligned_nfft(2 * P + M + 1)
+    assert nfft == 766 and chunked_geometry(M, P, nfft) is None
+    g = RNG.standard_normal(x.shape)
+    j_args = map(jnp.asarray, (x, c, weights, a))
+    want_y, vjp = jax.vjp(lambda *t: j_folded(*t, P, advance, nfft), *j_args)
+    want = vjp(jnp.asarray(g))
+    ins = [t.requires_grad_(True) for t in _t(x, c, weights, a)]
+    before = (mlsa.launches, mlsa.launches_unchunked)
+    y = mlsa.taylor_cascade(*ins, P, advance, nfft)
+    assert (mlsa.launches, mlsa.launches_unchunked) == before
+    _close(y, want_y)
+    y.backward(torch.as_tensor(g))
+    for t, w in zip(ins, want):
+        _close(t.grad, w)
+
+
+def test_mcep_vocoder_48k_matches_jax():
+    """MelCepstralVocoder at 48 kHz with 5 ms frames (P=240, 1200-sample
+    frames, fft 2048, alpha 0.55): both cascades on the unchunked
+    geometry, float64, against the JAX package."""
+    from chip_smoke import synth_speech
+    from diffsptk_tpu.models.mcep_vocoder import (
+        MelCepstralVocoder as JVocoder,
+    )
+
+    kw = dict(frame_length=1200, frame_period=240, fft_length=2048,
+              cep_order=24, alpha=0.55, n_iter=3, taylor_order=6)
+    x = synth_speech(1, 2400, sr=48000).astype(np.float64)
+    want = np.asarray(jax.jit(JVocoder(**kw, cascade="fused")
+                              .analysis_synthesis)(jnp.asarray(x)))
+    got = pt.MelCepstralVocoder(**kw, cascade="fused", **F64)\
+        .analysis_synthesis(torch.as_tensor(x))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("taylor_order,converges", [(20, False), (25, True)])
+def test_mcep_vocoder_48k_taylor_order_matches_jax(taylor_order, converges):
+    """The 48 kHz vocoder (alpha 0.55, 10 Newton steps) at Taylor order 20,
+    the default, and 25, on 4,800 samples of synthetic speech at float64:
+    the port equals the JAX package, so both share the round trip's SNR,
+    which stays below 0 dB at order 20 (the cascade does not converge) and
+    rises above 20 dB at order 25."""
+    from chip_smoke import synth_speech
+    from diffsptk_tpu.models.mcep_vocoder import (
+        MelCepstralVocoder as JVocoder,
+    )
+
+    kw = dict(frame_length=1200, frame_period=240, fft_length=2048,
+              cep_order=24, alpha=0.55, n_iter=10, taylor_order=taylor_order)
+    x = synth_speech(1, 4800, sr=48000).astype(np.float64)
+    want = np.asarray(jax.jit(JVocoder(**kw, cascade="fused")
+                              .analysis_synthesis)(jnp.asarray(x)))
+    got = pt.MelCepstralVocoder(**kw, cascade="fused", **F64)\
+        .analysis_synthesis(torch.as_tensor(x))
+    _close(got, want)
+    for y in (got.numpy(), want):
+        snr = 10 * np.log10((x ** 2).sum() / ((y - x) ** 2).sum())
+        assert (snr > 20.0) if converges else (snr < 0.0), snr

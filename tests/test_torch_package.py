@@ -60,6 +60,19 @@ def test_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
 
 
+def test_world_runs_with_jax_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['diffsptk_tpu'] = None\n"
+            "import diffsptk_tpu_torch as pt, torch\n"
+            "w = pt.WorldVocoder(ap_algorithm='d4c', device='cpu')\n"
+            "y = w.analysis_synthesis(torch.randn(1, 1600))\n"
+            "assert y.shape == (1, 1600) and torch.isfinite(y).all()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_no_jax_import_in_sources():
     bad = []
     for path in _sources():
