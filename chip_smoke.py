@@ -10,8 +10,11 @@ Phases (each prints one line; any failure exits non-zero):
                shared memory and spills;
   3. K1     -- the Newton kernel against its plain twin and a float64
                solve at n=25, B=7,680; its backward against the twin's;
-  4. K2     -- the cascade kernel against its plain twin at the flagship
-               geometry (B=32, N=240, P=80, M=199, S=20);
+  4. K2     -- the cascade kernel's chunked entry at the flagship
+               geometry (B=32, N=240, P=80, M=199, S=20) against its
+               folded twin and its direct plain version: time, bound,
+               rate against the fp32 peak, tile, ptxas' registers and
+               spills, and a grouped conv1d reference;
   5. K4     -- the SPD solve kernel against its twin at n = 13, 24, 33,
                64 and B=7,680, and its backward;
   6. K5     -- the scan kernel, float32 and complex64, against its twin
@@ -20,10 +23,12 @@ Phases (each prints one line; any failure exits non-zero):
                32 x 19,200 float32 samples: launch counts of the run, the
                kernel path against the twin path, a float64 CPU run of
                one row, the IMLSA cascade alone on the chain's own
-               coefficients (kernel, twin and float64; line [imlsa]),
-               SNR, the median and p90 time of 100 calls and
+               coefficients (kernel, twin and float64, its call's median
+               time, busy share and gaps between its stages; line
+               [imlsa]), SNR, the median and p90 time of 100 calls and
                samples/s at the median, and a torch.profiler breakdown
-               of the device time of one call;
+               of the device time of one call with the gaps between
+               cascade stages;
   8. grad   -- one backward of the chain on a short batch;
   9. lpc    -- the LPC analysis-synthesis chain (BASELINE.json configs[1],
                M=24) on 32 x 19,200 samples: launch counts, the kernel
@@ -33,8 +38,8 @@ Phases (each prints one line; any failure exits non-zero):
  10. lpc1   -- the same chain at LPC order 1, which takes the scan kernel;
  11. lpc-grad -- one backward of the M=24 chain on 16 x 12,800 samples
                (2,560 systems), through the solve kernel's backward;
- 12. K3     -- the cascade kernel's unchunked entry against its twin at
-               B=32, N=240, S=20 and (P, M) = (240, 199) and (80, 79);
+ 12. K3     -- the same for the unchunked entry at B=32, N=240, S=20
+               and (P, M) = (240, 199) and (80, 79);
  13. K6, K7 -- the windowed gather and the overlap-add against their twins
                at the shapes of every call site of [world] (recorded from
                one call), and their backwards;
@@ -51,7 +56,8 @@ Phases (each prints one line; any failure exits non-zero):
  17. chain48 -- MelCepstralVocoder at 48 kHz with 5 ms frames (P=240,
                cascade="fused", Taylor order 25) on 32 x 57,600 samples,
                which takes the unchunked cascade entry; both float32
-               paths against a float64 run on the card, SNR above 20 dB;
+               paths against a float64 run on the card, SNR above 20 dB,
+               the profiler's breakdown and the gaps between stages;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -118,10 +124,13 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_chain(torch, fn, calls: int = 3):
-    """Device time per call of ``fn`` under torch.profiler: the busy sum,
-    the eight costliest device functions by name, and the number of
-    device functions run per call."""
+def profile_chain(torch, fn, calls: int = 3, stages: int = 0):
+    """Device time per call of ``fn`` under torch.profiler: the busy time
+    (the union of the device functions' intervals: kernels launched as
+    programmatic dependents overlap), the eight costliest device functions
+    by summed duration, the number of device functions run per call, and
+    the gaps between the launches of the cascade kernel within each
+    cascade of ``stages`` stages (``stage_gaps``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -132,15 +141,53 @@ def profile_chain(torch, fn, calls: int = 3):
             fn()
         torch.cuda.synchronize()
     per_name = {}
-    count = 0
+    device = []
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             per_name[evt.name] = (per_name.get(evt.name, 0.0)
                                   + evt.device_time / 1e3 / calls)
-            count += 1
+            device.append(evt)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    return (sum(per_name.values()), [(k[:60], v) for k, v in top],
-            count / calls)
+    return (union_us(device) / 1e3 / calls, [(k[:60], v) for k, v in top],
+            len(device) / calls, stage_gaps(device, stages))
+
+
+def union_us(events) -> float:
+    """Microseconds covered by at least one of ``events``' intervals."""
+    total, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def stage_gaps(events, stages: int = 0) -> str:
+    """The gaps between consecutive device functions that are both
+    cascade stages (the kernel's ``stage_kernel``) of one cascade, from
+    the end of one to the start of the next: their count and median in
+    microseconds (negative where the next stage started early, as a
+    programmatic dependent), and the idle part as a share of the stages'
+    span.  With ``stages`` > 0, every stages-th stage kernel ends a
+    cascade, and the gap after it (to the next call's first stage) does
+    not count."""
+    events = sorted(events, key=lambda e: e.time_range.start)
+    gaps, done = [], 0
+    for prev, nxt in zip(events, events[1:]):
+        if "stage_kernel" not in prev.name:
+            continue
+        done += 1
+        if "stage_kernel" in nxt.name and (stages <= 0 or done % stages):
+            gaps.append(nxt.time_range.start - prev.time_range.end)
+    if not gaps:
+        return "no back-to-back cascade stages"
+    busy = union_us([e for e in events if "stage_kernel" in e.name])
+    idle = sum(g for g in gaps if g > 0)
+    return (f"{len(gaps)} gaps between cascade stages, median "
+            f"{float(np.median(gaps)):.2f} us, idle {idle:.2f} us in all, "
+            f"{100 * idle / (idle + busy):.1f} % of the stages' span "
+            f"({busy / 1e3:.3f} ms of stages)")
 
 
 def synth_speech(B: int, T: int, sr: int = 16000) -> np.ndarray:
@@ -218,7 +265,7 @@ def check_spd_solve(torch, dev, card: str) -> dict:
         return torch.cholesky_solve(b24[..., None], L)
 
     lib = cuda_ms(torch, library, 20)
-    device_ms, _, _ = profile_chain(
+    device_ms, _, _, _ = profile_chain(
         torch, lambda: solve.spd_solve_batched(A24, b24), 20)
     bound, by = bound_ms((n * (n + 1) // 2 + 2 * n) * B * 4.0,
                          B * (n ** 3 / 3 + 2 * n ** 2))
@@ -284,7 +331,7 @@ def check_scan(torch, dev, card: str) -> dict:
     plain = cuda_ms(torch, lambda: scan.first_order_scan_plain(p, x), 20)
     pc, xc = cases[(torch.complex64, 19200)]
     ms_c = cuda_ms(torch, lambda: scan.first_order_scan(pc, xc), 200)
-    device_ms, _, _ = profile_chain(
+    device_ms, _, _, _ = profile_chain(
         torch, lambda: scan.first_order_scan(p, x), 20)
     bound, by = bound_ms(3 * R * T * 4.0, 2.0 * R * T)
     bound_c, _ = bound_ms(3 * R * T * 8.0, 8.0 * R * T)
@@ -390,7 +437,7 @@ def run_lpc(torch, M: int, xs, card: str, tag: str) -> tuple[dict, float]:
         calls = cuda_call_ms(torch, lambda: chain(xs), 100)
         with twins():
             plain_ms = cuda_ms(torch, lambda: chain(xs), 3, warm=1)
-        busy_ms, top, n_device = profile_chain(torch, lambda: chain(xs))
+        busy_ms, top, n_device, _ = profile_chain(torch, lambda: chain(xs))
         stages = {
             "analysis": lambda: analysis(xs),
             "inverse filter": lambda: inverse(xs, a),
@@ -450,60 +497,113 @@ def cascade_case(torch, dev, B, N, P, M, S, seed):
             torch.as_tensor(c.astype(np.float32), device=dev), weights, a)
 
 
-def check_unchunked(torch, dev, card: str) -> dict:
-    """[K3]: the cascade kernel's unchunked entry (B3) against its twin at
-    B=32, N=240, S=20, at the 48 kHz geometry (P=240, M=199) and at
-    P=80, M=79; times at the first."""
+def ptxas_summary(log: str, kernel: str) -> str:
+    """ptxas' registers, stack and spills of each instance of ``kernel``
+    in a build log (-Xptxas -v)."""
+    out, name = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln
+        elif kernel in name and ("spill" in ln or "Used" in ln):
+            kind = "float4" if "ILb1E" in name else "scalar"
+            out.append(f"{kind}: {ln.split(':', 1)[-1].strip()}")
+    return "; ".join(out) or "not in the build log"
+
+
+def conv_stage(torch, x, c, P: int, M: int):
+    """One cascade stage (advance 0) as a grouped F.conv1d, every frame's
+    filters c_n and c_{n+1} over its P+M inputs, plus the blend
+    (torch.lerp): a reference of two calls, timed, never used by the
+    port."""
+    import torch.nn.functional as F
+
+    B, N = c.shape[:2]
+    c_hi = torch.cat([c[:, 1:], c[:, -1:]], dim=1)
+    w = torch.stack([c.flip(-1), c_hi.flip(-1)], dim=2).reshape(
+        B * N * 2, 1, M + 1)
+    lam = torch.arange(P, dtype=x.dtype, device=x.device) / P
+
+    def stage():
+        ctx = F.pad(x, (M, 0)).unfold(-1, P + M, P).reshape(1, B * N, P + M)
+        out = F.conv1d(ctx, w, groups=B * N).view(B, N, 2, P)
+        return torch.lerp(out[:, :, 0], out[:, :, 1], lam)
+
+    return stage
+
+
+def check_cascade(torch, dev, card: str, tag: str, chunked: bool, B: int,
+                  N: int, P: int, M: int, S: int, seed: int,
+                  ptxas: str) -> tuple[dict, str]:
+    """The cascade kernel through its chunked entry ([K2]) or its
+    unchunked entry ([K3]) at (B, N, P, M, S): against the folded twin
+    (bar 1e-5 of max|y|) and the direct plain version; the times of the
+    kernel, the twin, the direct version and the grouped-conv1d
+    reference; the bound, the direct work's rate against the fp32 peak,
+    the tile and ptxas' registers and spills.  Returns the kernel line's
+    numbers and the printed summary."""
     from diffsptk_tpu_torch.core import full_precision
-    from diffsptk_tpu_torch.kernels import build, mlsa
+    from diffsptk_tpu_torch.kernels import mlsa
     from diffsptk_tpu_torch.kernels.mlsa_cascade import (
         chunked_geometry,
         lane_aligned_nfft,
-        taylor_cascade_unchunked,
+        taylor_cascade_direct,
+        taylor_cascade_folded,
     )
 
-    B, N, S = 32, 240, 20
-    lines, out = [], None
-    for P, M in ((240, 199), (80, 79)):
-        nfft = lane_aligned_nfft(2 * P + M + 1)
-        check(chunked_geometry(M, P, nfft) is None,
-              f"K3: P={P}, M={M} is not the unchunked geometry")
-        x, c, weights, a = cascade_case(torch, dev, B, N, P, M, S, seed=P)
-
+    nfft = lane_aligned_nfft(2 * P + M + 1)
+    geo = chunked_geometry(M, P, nfft)
+    check((geo is not None) == chunked,
+          f"{tag}: P={P}, M={M} is not the expected geometry")
+    x, c, weights, a = cascade_case(torch, dev, B, N, P, M, S, seed=seed)
+    xq = x.reshape(B, N, P)
+    if chunked:
         def kernel():
-            return mlsa.cascade_unchunked_cuda(x.reshape(B, N, P), c,
-                                               weights, a, P, 0, nfft)
-
-        def plain():
-            return taylor_cascade_unchunked(x, c, weights, a, P, 0, nfft)
-
-        y_k = full_precision(kernel)().reshape(B, N * P)
-        y_p = full_precision(plain)()
-        torch.cuda.synchronize()
-        scale = float(y_p.abs().max())
-        err = float((y_k - y_p).abs().max())
-        check(err <= 1e-5 * scale,
-              f"K3 at P={P}, M={M} disagrees with its twin: {err} > 1e-5 * "
-              f"{scale}")
-        K = nfft // 2 + 1
-        _, _, _, _, n_blk, _ = mlsa.unchunked_plans(nfft, M, P, 0, dev)
-        lib = build.library("mlsa_cascade")
-        rows = lib.mlsa_cascade_unchunked_rows(P, K, n_blk)
-        smem = lib.mlsa_cascade_unchunked_smem_bytes(P, K, n_blk)
-        ms = cuda_ms(torch, full_precision(kernel), 10)
-        plain_ms = cuda_ms(torch, full_precision(plain), 5)
-        bound, by = cascade_bound(B, N, P, M, S)
-        lines.append(f"P={P} M={M} nfft={nfft} K={K} (tile of {rows} rows, "
-                     f"{smem} bytes): |kernel-twin| {err:.3e} (tol 1e-5 * "
-                     f"max|y| = {1e-5 * scale:.3e}), kernel {ms:.3f} ms per "
-                     f"call ({S} launches), twin {plain_ms:.3f} ms, bound "
-                     f"{bound:.4f} ms ({by})")
-        if out is None:
-            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound, bound_by=by, library_ms=None)
-    print(f"[K3] B={B} N={N} S={S}: " + "; ".join(lines)
-          + f"; library: none, no single PyTorch call | {card}", flush=True)
-    return out
+            return mlsa.cascade_chunked_cuda(xq, c, weights, a, P, 0, geo[1])
+    else:
+        def kernel():
+            return mlsa.cascade_unchunked_cuda(xq, c, weights, a, P, 0, nfft)
+    kernel = full_precision(kernel)
+    twin = full_precision(
+        lambda: taylor_cascade_folded(x, c, weights, a, P, 0, nfft))
+    direct = full_precision(
+        lambda: taylor_cascade_direct(x, c, weights, a, P, 0))
+    y_k = kernel().reshape(B, N * P)
+    y_t, y_d = twin(), direct()
+    torch.cuda.synchronize()
+    scale = float(y_t.abs().max())
+    err = float((y_k - y_t).abs().max())
+    err_d = float((y_k - y_d).abs().max())
+    check(err <= 1e-5 * scale,
+          f"{tag} at P={P}, M={M} disagrees with its twin: {err} > 1e-5 * "
+          f"{scale}")
+    del y_k, y_t, y_d
+    one = torch.ones(2, dtype=x.dtype, device=dev)
+    conv = full_precision(conv_stage(torch, x, c, P, M))
+    stage_d = taylor_cascade_direct(x, c, one, torch.tensor(
+        [0.0, 1.0], device=dev), P, 0).reshape(B, N, P)
+    err_conv = float((conv() - stage_d).abs().max())
+    ms = cuda_ms(torch, kernel, 10)
+    twin_ms = cuda_ms(torch, twin, 5)
+    direct_ms = cuda_ms(torch, direct, 3, warm=1)
+    conv_ms = cuda_ms(torch, conv, 10)
+    bound, by = cascade_bound(B, N, P, M, S)
+    work = 2 * (M + 1) * 2 * P * B * N * S
+    rate = work / (ms * 1e-3)
+    frames, threads, smem = mlsa.tile(P, M)
+    summary = (f"P={P} M={M} S={S}: |kernel-twin| {err:.3e} (tol 1e-5 * "
+               f"max|y| = {1e-5 * scale:.3e}), |kernel-direct| {err_d:.3e}; "
+               f"kernel {ms:.4f} ms per call ({S} launches), bound "
+               f"{bound:.4f} ms ({by}, {ms / bound:.1f}x); direct work "
+               f"{work / 1e9:.3f} GFLOP at {rate / 1e12:.2f} TFLOP/s, "
+               f"{100 * rate / F32_PEAK:.1f} % of the fp32 peak; tile "
+               f"{frames} frames x {threads} threads, {smem} bytes of "
+               f"shared memory; ptxas {ptxas}; twin {twin_ms:.3f} ms, "
+               f"direct plain version {direct_ms:.3f} ms; reference, two "
+               f"calls: grouped conv1d + lerp {conv_ms:.4f} ms per stage "
+               f"({S * conv_ms:.3f} ms per {S}), |conv-direct| "
+               f"{err_conv:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=twin_ms, bound_ms=bound,
+                bound_by=by, library_ms=None), summary
 
 
 def record_calls(module, name: str, sink: list):
@@ -795,7 +895,7 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
     p90 = float(np.percentile(calls, 90))
     prof = ""
     if full:
-        busy_ms, top, n_device = profile_chain(
+        busy_ms, top, n_device, _ = profile_chain(
             torch, lambda: voc.analysis_synthesis(xs))
         prof = (f"; device busy {busy_ms:.3f} ms ({100 * busy_ms / med:.1f} "
                 f"%) in {n_device:.0f} device functions per call; top device "
@@ -904,6 +1004,9 @@ def run_chain48(torch, card: str) -> dict:
                                warm=1)
     med = float(np.median(calls))
     p90 = float(np.percentile(calls, 90))
+    with torch.no_grad():
+        busy_ms, top, n_device, gaps = profile_chain(
+            torch, lambda: voc.analysis_synthesis(xs), stages=S)
     print(f"[chain48] B={B} T={T} (48 kHz, P=240, Taylor order {S}): "
           f"launches {launches}; "
           f"SNR against a float64 run on the card: kernel path "
@@ -913,7 +1016,10 @@ def run_chain48(torch, card: str) -> dict:
           f"(bar 20 dB), float64 {snr_64:.2f} dB; median {med:.3f} ms per "
           f"call (p90 {p90:.3f}, {len(calls)} calls), "
           f"{B * T / (med * 1e-3):.1f} samples/s; twin path {plain_ms:.3f} "
-          f"ms | {card}", flush=True)
+          f"ms; device busy {busy_ms:.3f} ms ({100 * busy_ms / med:.1f} %) "
+          f"in {n_device:.0f} device functions per call; {gaps}; top device "
+          f"time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top)
+          + f" | {card}", flush=True)
     return launches
 
 
@@ -925,12 +1031,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from diffsptk_tpu_torch import MelCepstralVocoder, twins
-    from diffsptk_tpu_torch.core import full_precision
     from diffsptk_tpu_torch.kernels import build, mlsa, newton
     from diffsptk_tpu_torch.kernels.mlsa_cascade import (
-        chunked_geometry,
         lane_aligned_nfft,
-        taylor_cascade_chunked,
         taylor_cascade_folded,
     )
     from diffsptk_tpu_torch.utils.linalg import remove_gain
@@ -951,18 +1054,17 @@ def main() -> int:
         keep = [ln.strip() for ln in log.splitlines()
                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
         print(f"[build] {src}: " + " | ".join(keep), flush=True)
+    ptxas = ptxas_summary(logs.get("mlsa_cascade", ""), "stage_kernel")
     smem = {"newton": build.library("newton").newton_smem_bytes(25),
-            "mlsa_cascade": build.library(
-                "mlsa_cascade").mlsa_cascade_smem_bytes(80, 128, 3, 3),
+            "mlsa_cascade (P=80, M=199)": mlsa.tile(80, 199),
+            "mlsa_cascade (P=240, M=199)": mlsa.tile(240, 199),
             "spd_solve (n=24)": build.library(
                 "spd_solve").spd_solve_smem_bytes(24),
             "spd_solve (n=64)": build.library(
-                "spd_solve").spd_solve_smem_bytes(64),
-            "mlsa_cascade unchunked (P=240, K=384)": build.library(
-                "mlsa_cascade").mlsa_cascade_unchunked_smem_bytes(240, 384,
-                                                                  3)}
+                "spd_solve").spd_solve_smem_bytes(64)}
     print(f"[build] done in {time.time() - t0:.1f} s; dynamic shared memory "
-          f"per block at the flagship shapes: {smem} bytes", flush=True)
+          f"per block at the flagship shapes (the cascade: frames, threads "
+          f"and bytes of its tile): {smem}", flush=True)
 
     report = {}
 
@@ -1021,43 +1123,10 @@ def main() -> int:
           f"torch.linalg.solve {k1_lib:.4f} ms, bound {k1_bound:.5f} ms "
           f"({k1_by}) | {card}", flush=True)
 
-    # 4. K2: tap-chunked cascade at the flagship geometry
-    Bc, N, P, M, S = 32, 240, 80, 199, 20
-    nfft = lane_aligned_nfft(2 * P + M + 1)
-    Q, nfft_c = chunked_geometry(M, P, nfft)
-    K = nfft_c // 2 + 1
-    x_t, c_t, weights, a = cascade_case(torch, dev, Bc, N, P, M, S, seed=21)
-    # every tap chunk carries weight: the rms of each is printed
-    chunk_rms = [float(c_t[..., j * P:(j + 1) * P].pow(2).mean().sqrt())
-                 for j in range(Q)]
-
-    def k2_kernel():
-        return mlsa.cascade_chunked_cuda(x_t.reshape(Bc, N, P), c_t, weights,
-                                         a, P, 0, nfft_c)
-
-    def k2_plain():
-        return taylor_cascade_chunked(x_t, c_t, weights, a, P, 0, nfft_c)
-
-    y_k = full_precision(k2_kernel)().reshape(Bc, N * P)
-    y_p = full_precision(k2_plain)()
-    torch.cuda.synchronize()
-    scale = float(y_p.abs().max())
-    err_k2 = float((y_k - y_p).abs().max())
-    tol2 = 1e-5
-    check(err_k2 <= tol2 * scale,
-          f"K2 disagrees with its twin: {err_k2} > {tol2} * {scale}")
-    k2_ms = cuda_ms(torch, full_precision(k2_kernel), 10)
-    k2_plain_ms = cuda_ms(torch, full_precision(k2_plain), 5)
-    k2_bound, k2_by = cascade_bound(Bc, N, P, M, S)
-    report["mlsa_cascade"] = dict(max_abs_err=err_k2, ms=k2_ms,
-                                  plain_ms=k2_plain_ms, bound_ms=k2_bound,
-                                  bound_by=k2_by, library_ms=None)
-    print(f"[K2] B={Bc} N={N} P={P} M={M} S={S} Q={Q} K={K}: rms of c per "
-          f"chunk {', '.join(f'{v:.3e}' for v in chunk_rms)}; "
-          f"|kernel-twin| {err_k2:.3e} (tol {tol2} * max|y| = "
-          f"{tol2 * scale:.3e}); kernel {k2_ms:.3f} ms per call "
-          f"({S} launches), twin {k2_plain_ms:.3f} ms, bound "
-          f"{k2_bound:.4f} ms ({k2_by}) | {card}", flush=True)
+    # 4. K2: the cascade kernel's chunked entry at the flagship geometry
+    report["mlsa_cascade"], k2 = check_cascade(
+        torch, dev, card, "K2", True, 32, 240, 80, 199, 20, 21, ptxas)
+    print(f"[K2] B=32 N=240 {k2} | {card}", flush=True)
 
     # 5. K4 and 6. K5: the SPD solve and scan kernels
     report["spd_solve"] = check_spd_solve(torch, dev, card)
@@ -1078,6 +1147,7 @@ def main() -> int:
         check(launches["newton"] == n_analyze,
               f"Newton kernel launched {launches['newton']} times, "
               f"expected {n_analyze}")
+        S = 20                                # the model's Taylor order
         check(launches["mlsa_cascade"] == 2 * S,
               f"cascade kernel launched {launches['mlsa_cascade']} times, "
               f"expected {2 * S}")
@@ -1116,11 +1186,13 @@ def main() -> int:
         # The IMLSA cascade alone, on the chain's own stage coefficients:
         # kernel, twin and a float64 run of the same float32 inputs.  Its
         # Taylor terms (|c| sums to several units) far exceed the result,
-        # so rounding is amplified; the kernel's longer accumulation chains
-        # (240 and 256 FMAs per output against the twin's 80- and 128-term
-        # matmuls) round about 1.4x as much in rms.  Limits: kernel-twin
-        # within 2e-3 max|e| and the kernel's rms distance from float64
-        # within 2x the twin's (about 9e-4 and 1.4x on an H100).
+        # so rounding is amplified.  Limits: kernel-twin within 2e-3
+        # max|e| and the kernel's rms distance from float64 within 2x the
+        # twin's (the DFT-plan kernel, summing 720 terms in one
+        # accumulator, came to 1.42x; the direct FIR sums two 200-term
+        # chains per output).  Then the cascade call's median time, device
+        # busy share, the host's time to enqueue it and the gaps between
+        # its 20 launches.
         stage = voc.imlsa.mglsadf.mglsadf
         c_im = remove_gain(stage.mgc2c(-mc), value=0.0)
         Pv = voc.frame_period
@@ -1140,11 +1212,28 @@ def main() -> int:
               f"IMLSA kernel disagrees with its twin: {err_e}")
         check(rms_k <= 2 * rms_p,
               f"IMLSA kernel rounds {rms_k / rms_p:.2f}x the twin")
+        im_calls = cuda_call_ms(torch, lambda: mlsa.taylor_cascade(
+            *im_args, *geo), 50)
+        im_ms = float(np.median(im_calls))
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        for _ in range(10):               # 200 launches: the queue holds them
+            mlsa.taylor_cascade(*im_args, *geo)
+        host_us = (time.perf_counter() - t_host) / 10 * 1e6
+        torch.cuda.synchronize()
+        im_busy, _, _, im_gaps = profile_chain(
+            torch, lambda: mlsa.taylor_cascade(*im_args, *geo), calls=5,
+            stages=S)
         print(f"[imlsa] B={Bv} N={mc.shape[-2]}: max sum|c| {c_sum:.3f}, "
               f"max|e| {e_scale:.4e}; |kernel-twin| {err_e:.3e} (tol 2e-3 "
               f"* max|e|); against float64: kernel max {max_k:.3e} rms "
               f"{rms_k:.3e}, twin max {max_p:.3e} rms {rms_p:.3e} (rms "
-              f"ratio {rms_k / rms_p:.3f}, tol 2)", flush=True)
+              f"ratio {rms_k / rms_p:.3f}, tol 2); cascade call median "
+              f"{im_ms:.4f} ms (p90 {float(np.percentile(im_calls, 90)):.4f}"
+              f", {len(im_calls)} calls), device busy {im_busy:.4f} ms "
+              f"({100 * im_busy / im_ms:.1f} %); host enqueue "
+              f"{host_us:.1f} us per call, {host_us / S:.2f} us per stage; "
+              f"{im_gaps} | {card}", flush=True)
         snr = float(10 * torch.log10(
             (xs ** 2).sum() / ((y - xs) ** 2).sum()))
         check(snr > 20.0, f"round-trip SNR {snr:.2f} dB is too low")
@@ -1155,8 +1244,8 @@ def main() -> int:
             chain_plain_ms = cuda_ms(
                 torch, lambda: voc.analysis_synthesis(xs), 2, warm=1)
     rate = Bv * T / (chain_ms * 1e-3)
-    busy_ms, top, n_device = profile_chain(
-        torch, lambda: voc.analysis_synthesis(xs))
+    busy_ms, top, n_device, gaps = profile_chain(
+        torch, lambda: voc.analysis_synthesis(xs), stages=S)
     for key, count in launches.items():
         report[key]["launches"] = count
     print(f"[chain] B={Bv} T={T}: launches {launches}; |mc kernel-twin| "
@@ -1170,8 +1259,9 @@ def main() -> int:
 
     print(f"[profile] device busy {busy_ms:.3f} ms of {chain_ms:.3f} ms per "
           f"call ({100 * busy_ms / chain_ms:.1f} %) in {n_device:.0f} device "
-          f"functions per call; top device time: "
-          + "; ".join(f"{k} {v:.3f} ms" for k, v in top), flush=True)
+          f"functions per call; {gaps}; top device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" | {card}",
+          flush=True)
 
     # 8. gradient through the chain
     xg = xs[:2, :3200].clone().requires_grad_(True)
@@ -1207,8 +1297,16 @@ def main() -> int:
     print(f"[lpc-grad] B=16 T=12800 (2,560 systems): solve launches "
           f"{solve.launches}, finite, max|dL/dx| {gmax:.4e}", flush=True)
 
-    # 12. K3: the unchunked cascade entry
-    report["mlsa_cascade_unchunked"] = check_unchunked(torch, dev, card)
+    # 12. K3: the cascade kernel's unchunked entry at the 48 kHz geometry
+    #     (the main path's) and at P=80, M=79
+    k3 = []
+    for P3, M3 in ((240, 199), (80, 79)):
+        row, line = check_cascade(torch, dev, card, "K3", False, 32, 240, P3,
+                                  M3, 20, P3, ptxas)
+        report.setdefault("mlsa_cascade_unchunked", row)
+        k3.append(line)
+    print("[K3] B=32 N=240 " + "; ".join(k3)
+          + f"; library: none, no single PyTorch call | {card}", flush=True)
 
     # 14. and 13. the WORLD chain, then its kernels at its call sites
     xw = torch.as_tensor(synth_speech(32, 19200), device=dev)

@@ -16,7 +16,8 @@ x)[s - jP]``, every chunk on the small (P-1) geometry whose forward
 transform is a row shift of one shared plan.  The two branches,
 :func:`taylor_cascade_chunked` and :func:`taylor_cascade_unchunked`, are
 the plain twins of the CUDA cascade kernel's two entries
-(kernels/mlsa.py).
+(kernels/mlsa.py), which compute the same function as a direct FIR;
+:func:`taylor_cascade_direct` follows the kernel's own arithmetic.
 """
 
 from __future__ import annotations
@@ -266,3 +267,34 @@ def taylor_cascade_folded(x: torch.Tensor, c: torch.Tensor,
                                       chunked[1])
 
     return taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft)
+
+
+def taylor_cascade_direct(x: torch.Tensor, c: torch.Tensor,
+                          weights: torch.Tensor, a: torch.Tensor, P: int,
+                          advance: int) -> torch.Tensor:
+    """The Taylor cascade as a direct FIR, in the CUDA kernel's arithmetic
+    (csrc/mlsa_cascade.cu): per output t = nP + p of a stage, the sums
+    ``lo = sum_m c_n[m] x[t+z-m]`` and ``hi = sum_m c_{n+1}[m] x[t+z-m]``
+    (c_N = c_{N-1}, x zero outside the row, z = advance), blended as
+    ``(1 - p/P) lo + (p/P) hi``.  The same function as
+    :func:`taylor_cascade_folded`, without its transforms.
+
+    x (..., T); c (..., N, M+1); weights/a (S+1,).
+    """
+    M = c.shape[-1] - 1
+    N = c.shape[-2]
+    T = x.shape[-1]
+    lam = torch.arange(P, dtype=x.dtype, device=x.device) / P
+    c_hi = torch.cat([c[..., 1:, :], c[..., -1:, :]], dim=-2)
+    taps = torch.stack([c.flip(-1), c_hi.flip(-1)], dim=-1)  # (..., N, M+1, 2)
+    taps = taps.to(x.dtype)
+    xs = x
+    y = a[0] * x
+    for s in range(1, a.shape[0]):
+        win = F.pad(xs, (M - advance, advance)).unfold(-1, M + 1, 1)
+        sums = torch.matmul(win.reshape(win.shape[:-2] + (N, P, M + 1)),
+                            taps)                       # (..., N, P, 2)
+        out = (1 - lam) * sums[..., 0] + lam * sums[..., 1]
+        xs = out.reshape(out.shape[:-2] + (T,)) * weights[s]
+        y = y + a[s] * xs
+    return y

@@ -9,8 +9,10 @@ Marked ``gpu``; without a card every test skips (decided in the
 port's machine need not have).  This file imports no JAX.
 
 Tolerances: the Newton kernel within 2e-4 (rtol and atol) of its twin,
-the cascade kernel (both entries) within 1e-5 of max|y| (fp32 arithmetic
-in another order than the twin's matmuls); the windowed gather equal to
+the cascade kernel (both entries) within 1e-5 of max|y| of the folded
+twin and of the direct plain version (fp32 arithmetic in another order
+than the twin's matmuls and the direct version's sums); the windowed
+gather equal to
 its twin (a copy); the overlap-add and the gather's backward within 1e-5
 of their twins (sums in another order than index_add's); the SPD solve kernel within 1e-4 of
 max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
@@ -31,6 +33,7 @@ from diffsptk_tpu_torch.kernels.mlsa_cascade import (
     chunked_geometry,
     lane_aligned_nfft,
     taylor_cascade_chunked,
+    taylor_cascade_direct,
     taylor_cascade_folded,
     taylor_cascade_unchunked,
 )
@@ -349,13 +352,48 @@ def test_unchunked_cascade_kernel_matches_twin(cuda, B, N, P, M, S):
 
 
 def test_unchunked_cascade_refuses_a_tile_too_large(cuda):
-    """At nfft 2,400 (K = 1,201) a 12-row tile of the B3 entry needs 245
-    KB of shared memory, more than a block may hold: the entry refuses the
-    geometry."""
-    x, c, weights, a = _cascade_case(cuda, 1, 4, 240, 199, 2, seed=5)
-    with pytest.raises(RuntimeError, match="mlsa_cascade stage"):
-        mlsa.cascade_unchunked_cuda(x.reshape(1, 4, 240), c, weights, a, 240,
+    """nfft 2,400 (K = 1,201), a geometry whose DFT-plan tile did not fit
+    in a block: the direct FIR needs no transform, so the B3 entry runs it
+    and matches the twin.  Only a geometry whose one-frame tile exceeds a
+    block's shared memory is refused, with a clear error."""
+    x, c, weights, a = _cascade_case(cuda, 2, 9, 240, 199, 3, seed=5)
+    y = mlsa.cascade_unchunked_cuda(x.reshape(2, 9, 240), c, weights, a, 240,
                                     0, 2400)
+    want = taylor_cascade_unchunked(x, c, weights, a, 240, 0, 2400)
+    _assert_cascade_close(y.reshape(2, 9 * 240), want)
+    x, c, weights, a = _cascade_case(cuda, 1, 2, 240, 30000, 1, seed=5)
+    with pytest.raises(ValueError, match="one frame"):
+        mlsa.cascade_unchunked_cuda(x.reshape(1, 2, 240), c, weights, a, 240,
+                                    0, 2 * 240 + 30001)
+
+
+@pytest.mark.parametrize("B,N,P,M,S,advance", [(2, 17, 18, 50, 3, 0),
+                                               (1, 7, 5, 3, 4, 1),
+                                               (2, 33, 80, 20, 3, 0),
+                                               (1, 21, 16, 239, 3, 4),
+                                               (3, 19, 20, 7, 5, 2),
+                                               (2, 9, 240, 199, 4, 9),
+                                               (1, 3, 2400, 199, 2, 0),
+                                               (2, 11, 84, 130, 3, 3)])
+def test_cascade_kernel_matches_direct(cuda, B, N, P, M, S, advance):
+    """Both entries against taylor_cascade_direct at awkward geometries:
+    P not a multiple of 4 or of the 8-output thread item, M < P, M >> P,
+    advance > 0, N not a multiple of the tile's frames, a frame wider than
+    a block's threads (P = 2,400), and x at an offset that is not
+    16-byte aligned."""
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=6)
+    want = taylor_cascade_direct(x, c, weights, a, P, advance)
+    xq = x.reshape(B, N, P)
+    y = mlsa.cascade_unchunked_cuda(xq, c, weights, a, P, advance,
+                                    2 * P + M + 1)
+    _assert_cascade_close(y.reshape(B, N * P), want)
+    y = mlsa.cascade_chunked_cuda(xq, c, weights, a, P, advance, 3 * P)
+    _assert_cascade_close(y.reshape(B, N * P), want)
+    shifted = torch.empty(B * N * P + 1, device=cuda)[1:]
+    shifted.copy_(x.reshape(-1))
+    y = mlsa.cascade_unchunked_cuda(shifted.view(B, N, P), c, weights, a, P,
+                                    advance, 2 * P + M + 1)
+    _assert_cascade_close(y.reshape(B, N * P), want)
 
 
 def test_vocoder_48k_takes_the_unchunked_kernel(cuda):

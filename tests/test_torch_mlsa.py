@@ -248,24 +248,6 @@ def test_unchunked_twin_matches_pallas_interpret(B, N, P, M, S, advance):
                                atol=2e-4 * float(np.abs(want).max()))
 
 
-def test_unchunked_plans_pad_the_half_spectrum():
-    """The kernel's plans are cascade_plan's, the half spectrum padded
-    with zero bins to a multiple of 4 (K = 65 -> 68)."""
-    F, Gre, Gim, r0, n_blk, K = mlsa.unchunked_plans(128, 39, 16, 0, "cpu")
-    Ffwd, Ginv_re, Ginv_im, r0_, n_blk_ = cascade_plan(128, 39, 16, 0)
-    assert (r0, n_blk, K) == (r0_, n_blk_, 65) and F.shape == (n_blk, 16, 136)
-    np.testing.assert_allclose(F[..., :65].numpy(), Ffwd[..., :65], atol=1e-7)
-    np.testing.assert_allclose(F[..., 68:133].numpy(), Ffwd[..., 65:],
-                               atol=1e-7)
-    assert not F[..., 65:68].any() and not F[..., 133:].any()
-    np.testing.assert_allclose(Gre[:65].numpy(), Ginv_re, atol=1e-7)
-    np.testing.assert_allclose(Gim[:65].numpy(), Ginv_im, atol=1e-7)
-    assert not Gre[65:].any() and not Gim[65:].any()
-    # the 48 kHz geometry: K = 384 needs no padding
-    assert mlsa.unchunked_plans(766, 199, 240, 0, "cpu")[0].shape == (
-        3, 240, 768)
-
-
 def test_cascade_entry_unchunked_geometry_and_backward():
     """taylor_cascade where the chunked transform is not smaller (one tap
     chunk, P=240, M=199): a CPU tensor runs the twin, no kernel counts,

@@ -1,0 +1,78 @@
+"""The measurement helpers of chip_smoke.py that read the cascade kernel's
+runs: the grouped-conv1d reference stage, the profiler's busy union and
+stage gaps, and ptxas' register summary, on the CPU."""
+
+from __future__ import annotations
+
+import types
+
+import numpy as np
+import torch
+
+import chip_smoke
+from diffsptk_tpu_torch.kernels.mlsa_cascade import taylor_cascade_direct
+
+
+def _event(name, start, end):
+    return types.SimpleNamespace(
+        name=name, time_range=types.SimpleNamespace(start=start, end=end))
+
+
+def test_conv_stage_is_one_direct_stage():
+    """Its grouped F.conv1d and lerp compute one stage of the cascade."""
+    P, M = 16, 23
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal((2, 5 * P)))
+    c = torch.as_tensor(rng.standard_normal((2, 5, M + 1)) * 0.3)
+    got = chip_smoke.conv_stage(torch, x, c, P, M)()
+    want = taylor_cascade_direct(x, c, torch.ones(2, dtype=x.dtype),
+                                 torch.tensor([0.0, 1.0], dtype=x.dtype), P,
+                                 0)
+    np.testing.assert_allclose(got.reshape(2, -1).numpy(), want.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_busy_union_and_stage_gaps():
+    """Overlapping stages (programmatic launches) count once as busy, and
+    their gaps are negative; an idle gap counts towards the share."""
+    events = [_event("stage_kernel<true>", 0.0, 10.0),
+              _event("stage_kernel<true>", 8.0, 22.0),
+              _event("gemm", 23.0, 30.0),
+              _event("stage_kernel<true>", 31.0, 40.0),
+              _event("stage_kernel<true>", 41.0, 50.0)]
+    assert chip_smoke.union_us(events) == 47.0
+    line = chip_smoke.stage_gaps(events)
+    assert line.startswith("2 gaps between cascade stages, median -0.50 us")
+    assert "idle 1.00 us in all, 2.4 %" in line
+    assert chip_smoke.stage_gaps(events[2:3]) == (
+        "no back-to-back cascade stages")
+    # two cascades of two stages, back to back: the host's gap between
+    # them is not one between stages
+    calls = [_event("stage_kernel<true>", 0.0, 10.0),
+             _event("stage_kernel<true>", 11.0, 20.0),
+             _event("stage_kernel<true>", 50.0, 60.0),
+             _event("stage_kernel<true>", 62.0, 70.0)]
+    assert chip_smoke.stage_gaps(calls).startswith(
+        "3 gaps between cascade stages, median 2.00 us, idle 33.00 us")
+    assert chip_smoke.stage_gaps(calls, stages=2).startswith(
+        "2 gaps between cascade stages, median 1.50 us, idle 3.00 us")
+
+
+def test_ptxas_summary_reads_each_instance():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112stage_kernelILb1EEEvPKf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112stage_kernelILb0EEEvPKf' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 63 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'",
+        "ptxas info    : Used 12 registers"])
+    summary = chip_smoke.ptxas_summary(log, "stage_kernel")
+    assert summary.count("float4:") == 2 and summary.count("scalar:") == 2
+    assert "Used 64 registers" in summary and "8 bytes spill" in summary
+    assert "12 registers" not in summary
+    assert chip_smoke.ptxas_summary("", "stage_kernel") == (
+        "not in the build log")
