@@ -6,10 +6,13 @@
 Phases (each prints one line; any failure exits non-zero):
   1. card   -- require CUDA; print nvidia-smi's name and power limit;
   2. build  -- build every CUDA kernel from csrc/ with nvcc (sm_90a, one
-               nvcc per source, all at once); print ptxas' registers,
-               shared memory and spills;
+               nvcc per source, all at once); print each source's nvcc
+               time and ptxas' registers, shared memory and spills (for
+               newton.cu, one instance per order, their range);
   3. K1     -- the Newton kernel against its plain twin and a float64
                solve at n=25, B=7,680; its backward against the twin's;
+               its time per call and on the device, and the share of
+               its bound;
   4. K2     -- the cascade kernel's chunked entry at the flagship
                geometry (B=32, N=240, P=80, M=199, S=20) against its
                folded twin and its direct plain version: time, bound,
@@ -42,7 +45,9 @@ Phases (each prints one line; any failure exits non-zero):
                and (P, M) = (240, 199) and (80, 79);
  13. K6, K7 -- the windowed gather and the overlap-add against their twins
                at the shapes of every call site of [world] (recorded from
-               one call), and their backwards;
+               one call), and their backwards; the gather's time per
+               call and on the device, at each site and summed, with
+               its rate and share of the bound;
  14. world  -- WorldVocoder(ap_algorithm="d4c").analysis_synthesis
                (BASELINE.json configs[3], YIN for its neural tracker) on
                32 x 19,200 float32 samples: launch counts, the kernel path
@@ -65,6 +70,7 @@ result line.  Every time is CUDA-event time on this card.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -150,6 +156,35 @@ def profile_chain(torch, fn, calls: int = 3, stages: int = 0):
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     return (union_us(device) / 1e3 / calls, [(k[:60], v) for k, v in top],
             len(device) / calls, stage_gaps(device, stages))
+
+
+def kernel_device_ms(torch, fn, kernel: str, calls: int = 20):
+    """Device ms per call of ``fn`` under torch.profiler (CUDA activity
+    only): the kernel's own (device functions whose name holds
+    ``kernel``), and the busy time of all that ``fn`` enqueues.  Unlike
+    ``cuda_ms`` it leaves out the host's time between calls.  0.0 where
+    the profiler recorded none of the kernel's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = sum(e.device_time for e in events if kernel in e.name)
+    return own / 1e3 / calls, union_us(events) / 1e3 / calls
+
+
+def device_rate(nbytes: float, ms: float, bound: float) -> str:
+    """A device time with its rate and share of the bound, or "not
+    measured" where the profiler recorded nothing."""
+    if ms <= 0.0:
+        return "not measured"
+    return (f"{ms:.4f} ms, {nbytes / ms / 1e9:.3f} TB/s, "
+            f"{100 * bound / ms:.1f} % of the bound")
 
 
 def union_us(events) -> float:
@@ -510,6 +545,41 @@ def ptxas_summary(log: str, kernel: str) -> str:
     return "; ".join(out) or "not in the build log"
 
 
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers and spilled bytes (stores and loads) of each instance of
+    ``kernel`` in a build log (-Xptxas -v), keyed by the instance's
+    integer template argument, or by its mangled name if it has none."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            arg = re.search(r"ILi(\d+)E", name)
+            key = (int(arg.group(1)) if arg else name) if kernel in name \
+                else None
+            if key is not None:
+                out[key] = [0, 0]
+        elif key is not None and "spill" in ln:
+            out[key][1] = sum(map(int, re.findall(r"(\d+) bytes spill", ln)))
+        elif key is not None and "Used" in ln:
+            out[key][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
+def usage_line(usage: dict, pick=None) -> str:
+    """One line of ``ptxas_usage``: the range of registers over the
+    instances, the bytes they spill, and the instance ``pick``'s own."""
+    if not usage:
+        return "not in the build log"
+    regs = [r for r, _ in usage.values()]
+    line = (f"{len(usage)} instance{'s' if len(usage) > 1 else ''}, "
+            f"{min(regs)}-{max(regs)} registers, "
+            f"{sum(sp for _, sp in usage.values())} bytes spilled")
+    if pick in usage:
+        line += (f" (n={pick}: {usage[pick][0]} registers, "
+                 f"{usage[pick][1]} bytes spilled)")
+    return line
+
+
 def conv_stage(torch, x, c, P: int, M: int):
     """One cascade stage (advance 0) as a grouped F.conv1d, every frame's
     filters c_n and c_{n+1} over its P+M inputs, plus the blend
@@ -632,15 +702,15 @@ def covered_samples(torch, T: int, starts, length: int) -> int:
     return int((d.cumsum(1)[:, :T] > 0).sum())
 
 
-def check_gather(torch, sites, card: str) -> dict:
+def check_gather(torch, sites, card: str, ptxas: str) -> dict:
     """[K6]: the gather kernel against its twin at every call site of one
     [world] call (exact: a copy), its backward, and the times of all the
-    sites together."""
+    sites together and of each."""
     from diffsptk_tpu_torch import twins
     from diffsptk_tpu_torch.kernels import gather
 
-    ms = plain_ms = lib_ms = bound = nbytes = 0.0
-    shapes = []
+    ms = dev_ms = plain_ms = lib_ms = bound = nbytes = 0.0
+    shapes, per_site = [], []
     for (x, starts, length), _ in sites:
         got = gather.gather_windows_cuda(x, starts, length)
         want = gather.gather_windows_plain(x, starts, length)
@@ -651,8 +721,12 @@ def check_gather(torch, sites, card: str) -> dict:
         idx = (starts[..., None].long() + torch.arange(
             length, device=x.device)).clamp(0, x.shape[-1] - 1)
         xe = x[:, None, :].expand(-1, idx.shape[1], -1)
-        ms += cuda_ms(torch, lambda: gather.gather_windows_cuda(
+        site_ms = cuda_ms(torch, lambda: gather.gather_windows_cuda(
             x, starts, length), 100)
+        ms += site_ms
+        site_dev = kernel_device_ms(torch, lambda: gather.gather_windows_cuda(
+            x, starts, length), "gather_kernel")[0]
+        dev_ms += site_dev
         plain_ms += cuda_ms(torch, lambda: gather.gather_windows_plain(
             x, starts, length), 20)
         lib_ms += cuda_ms(torch, lambda: torch.gather(xe, 2, idx), 100)
@@ -661,6 +735,9 @@ def check_gather(torch, sites, card: str) -> dict:
         nbytes += b
         bound += bound_ms(b, 0.0)[0]
         shapes.append(f"{tuple(x.shape)}x{length}")
+        per_site.append(f"N={starts.shape[1]} L={length} {site_ms:.4f} ms "
+                        f"per call, {b / site_ms / 1e9:.2f} TB/s; device "
+                        + device_rate(b, site_dev, bound_ms(b, 0.0)[0]))
     # backward at the largest site, kernel (through the overlap-add kernel)
     # against the twin (index_add)
     (x, starts, length), _ = max(sites, key=lambda s: s[0][0].numel())
@@ -682,7 +759,11 @@ def check_gather(torch, sites, card: str) -> dict:
           f"max {scale:.3e}); all sites: kernel {ms:.4f} ms, twin "
           f"{plain_ms:.4f} ms, torch.gather on a prebuilt index "
           f"{lib_ms:.4f} ms, {nbytes / 1e6:.2f} MB, bound {bound:.5f} ms "
-          f"(bytes) | {card}", flush=True)
+          f"(bytes), {100 * bound / ms:.1f} % of the bound reached, "
+          f"{nbytes / ms / 1e9:.3f} TB/s; the kernel's device time "
+          + device_rate(nbytes, dev_ms, bound) + "; per site: "
+          + " | ".join(per_site)
+          + f"; ptxas gather_kernel: {ptxas} | {card}", flush=True)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", library_ms=lib_ms)
 
@@ -1050,10 +1131,20 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     logs = build.build()
+    newton_ptxas = usage_line(
+        ptxas_usage(logs.get("newton", ""), "newton_kernel"), pick=25)
+    gather_ptxas = usage_line(
+        ptxas_usage(logs.get("gather", ""), "gather_kernel"))
     for src, log in logs.items():
+        took = (f"nvcc {build.seconds[src]:.1f} s; "
+                if src in build.seconds else "")
+        if src == "newton":   # one instance per order
+            print(f"[build] newton: {took}newton_kernel {newton_ptxas}",
+                  flush=True)
+            continue
         keep = [ln.strip() for ln in log.splitlines()
                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-        print(f"[build] {src}: " + " | ".join(keep), flush=True)
+        print(f"[build] {src}: {took}" + " | ".join(keep), flush=True)
     ptxas = ptxas_summary(logs.get("mlsa_cascade", ""), "stage_kernel")
     smem = {"newton": build.library("newton").newton_smem_bytes(25),
             "mlsa_cascade (P=80, M=199)": mlsa.tile(80, 199),
@@ -1062,9 +1153,10 @@ def main() -> int:
                 "spd_solve").spd_solve_smem_bytes(24),
             "spd_solve (n=64)": build.library(
                 "spd_solve").spd_solve_smem_bytes(64)}
-    print(f"[build] done in {time.time() - t0:.1f} s; dynamic shared memory "
-          f"per block at the flagship shapes (the cascade: frames, threads "
-          f"and bytes of its tile): {smem}", flush=True)
+    print(f"[build] done in {time.time() - t0:.1f} s; shared memory per "
+          f"block at the flagship shapes (static for newton, dynamic for "
+          f"the others; the cascade: frames, threads and bytes of its "
+          f"tile): {smem}", flush=True)
 
     report = {}
 
@@ -1107,12 +1199,15 @@ def main() -> int:
           f"K1 backward disagrees with the twin's: {err_grad}")
     k1_ms = cuda_ms(torch, lambda: newton.newton_solve_lane_major(rt_t, b_t),
                     200)
+    k1_dev = kernel_device_ms(torch, lambda: newton.newton_solve_lane_major(
+        rt_t, b_t), "newton_kernel")[0]
     k1_plain = cuda_ms(torch, lambda: newton.newton_solve_plain(rt_t, b_t), 3,
                        warm=1)
     A32 = A64.float()
     b32 = b_t.T.contiguous()[..., None]
     k1_lib = cuda_ms(torch, lambda: torch.linalg.solve(A32, b32), 20)
-    k1_bound, k1_by = bound_ms((2 * n - 1 + 2 * n) * B * 4.0,
+    k1_bytes = (2 * n - 1 + 2 * n) * B * 4.0
+    k1_bound, k1_by = bound_ms(k1_bytes,
                                B * (n ** 3 / 3 + 2 * n ** 2))
     report["newton"] = dict(max_abs_err=err_twin, ms=k1_ms,
                             plain_ms=k1_plain, bound_ms=k1_bound,
@@ -1121,7 +1216,10 @@ def main() -> int:
           f"|kernel-f64| {err_64:.3e}, backward {err_grad:.3e} "
           f"(tol {tol}); kernel {k1_ms:.4f} ms, twin {k1_plain:.3f} ms, "
           f"torch.linalg.solve {k1_lib:.4f} ms, bound {k1_bound:.5f} ms "
-          f"({k1_by}) | {card}", flush=True)
+          f"({k1_by}), {100 * k1_bound / k1_ms:.2f} % of the bound "
+          f"reached; the kernel's device time "
+          f"{device_rate(k1_bytes, k1_dev, k1_bound)}; ptxas "
+          f"newton_kernel: {newton_ptxas} | {card}", flush=True)
 
     # 4. K2: the cascade kernel's chunked entry at the flagship geometry
     report["mlsa_cascade"], k2 = check_cascade(
@@ -1312,7 +1410,8 @@ def main() -> int:
     xw = torch.as_tensor(synth_speech(32, 19200), device=dev)
     launches_w, gather_sites, ola_sites = run_world(torch, xw, card, "d4c",
                                                     "world", full=True)
-    report["gather"] = check_gather(torch, gather_sites, card)
+    report["gather"] = check_gather(torch, gather_sites, card,
+                                    gather_ptxas)
     report["ola"] = check_ola(torch, ola_sites[0], card)
     del gather_sites, ola_sites
     report["gather"]["launches"] = launches_w["gather"]

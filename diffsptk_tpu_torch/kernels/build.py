@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -23,6 +24,8 @@ SOURCES = ("newton", "mlsa_cascade", "spd_solve", "scan", "gather", "ola")
 
 _libs: dict[tuple, ctypes.CDLL] = {}
 _logs: dict = {}
+seconds: dict = {}
+"""Wall time of each target's nvcc in the last build that compiled it."""
 _lock = threading.Lock()
 
 
@@ -59,23 +62,34 @@ def build(targets=SOURCES) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     nvcc = _nvcc()
+    t0 = time.monotonic()
     for target in targets:
         name, defines = (target, ()) if isinstance(target, str) else target
         src, lib = _paths(name, defines)
         if os.path.exists(lib):
             continue
         tmp = f"{lib}.{os.getpid()}.tmp"
+        log = open(f"{tmp}.log", "w+")
         procs[target] = (subprocess.Popen(
-            command(nvcc, src, tmp, defines), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), tmp, lib)
+            command(nvcc, src, tmp, defines), stdout=log,
+            stderr=subprocess.STDOUT, text=True), tmp, lib, log)
     failed = []
-    for target, (proc, tmp, lib) in procs.items():
-        out, _ = proc.communicate()
-        _logs[target] = out
-        if proc.returncode != 0:
-            failed.append(f"{target}:\n{out}")
-            continue
-        os.replace(tmp, lib)
+    while procs:
+        done = [t for t, (proc, *_) in procs.items()
+                if proc.poll() is not None]
+        if not done:
+            time.sleep(0.05)
+        for target in done:
+            proc, tmp, lib, log = procs.pop(target)
+            seconds[target] = time.monotonic() - t0
+            log.seek(0)
+            out = _logs[target] = log.read()
+            log.close()
+            os.remove(log.name)
+            if proc.returncode != 0:
+                failed.append(f"{target}:\n{out}")
+                continue
+            os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {t: _logs.get(t, "(library was current)") for t in targets}

@@ -56,8 +56,12 @@ def _system(n, B, seed=0):
     return rt, b
 
 
-@pytest.mark.parametrize("n,B", [(1, 5), (6, 100), (25, 7680), (33, 70)])
+@pytest.mark.parametrize("n,B", [(1, 5), (2, 9), (6, 100), (25, 7680),
+                                 (25, 7683), (31, 70), (32, 77), (33, 70),
+                                 (33, 1001)])
 def test_newton_kernel_matches_twin(cuda, n, B):
+    """Every lane a row at n = 32, lane 0 two rows at n = 33; B not a
+    multiple of a block's 4 systems."""
     rt, b = (torch.as_tensor(a, device=cuda) for a in _system(n, B))
     before = newton.launches
     x = newton.newton_solve_lane_major(rt, b)
@@ -414,12 +418,21 @@ def test_vocoder_48k_takes_the_unchunked_kernel(cuda):
     assert float((y - want).abs().max()) <= 1e-2 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("B,T,N,length,lo,hi", [(32, 30000, 241, 514, 0, 29486),
-                                                (3, 500, 40, 64, -90, 480),
-                                                (2, 50, 9, 200, -20, 60)])
+@pytest.mark.parametrize("B,T,N,length,lo,hi", [
+    (32, 30000, 241, 514, 0, 29486),
+    (3, 500, 40, 64, -90, 480),
+    (2, 50, 9, 200, -20, 60),
+    (3, 500, 40, 1, -90, 480),
+    (3, 500, 41, 3, -90, 480),
+    (2, 3000, 33, 79, -100, 3100),
+    (2, 800, 11, 1026, -300, 900),
+    (64, 20000, 241, 1026, 0, 18974),
+    (5, 700, 3, 37, 600, 760),
+])
 def test_gather_kernel_matches_twin(cuda, B, T, N, length, lo, hi):
-    """Exact, with starts clamped at both edges and windows longer than
-    the row."""
+    """Exact, with starts clamped at both edges, windows longer than the
+    row, lengths that are not multiples of 4 and N L not a multiple of a
+    warp's 256 values."""
     x = torch.randn(B, T, **_f32(cuda, 8))
     s = torch.randint(lo, hi, (B, N), device=cuda,
                       generator=torch.Generator(cuda).manual_seed(9))

@@ -135,3 +135,31 @@ def test_build_targets_hopper():
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     for name in build.SOURCES:
         assert os.path.exists(os.path.join(build.CSRC, f"{name}.cu"))
+
+
+def test_build_runs_every_nvcc_at_once_and_times_each(tmp_path, monkeypatch):
+    """build() starts one compiler per source together, keeps each one's
+    output and wall time, and installs each library when it finishes; a
+    stand-in compiler that sleeps takes the place of nvcc."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "out=''; prev=''\n"
+        "for a in \"$@\"; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+        "case \"$out\" in *libgather*) sleep 1;; esac\n"
+        "echo \"ptxas info    : Used 7 registers\"\n"
+        ": > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "_logs", {})
+    monkeypatch.setattr(build, "seconds", {})
+    logs = build.build(("newton", "gather"))
+    assert set(logs) == {"newton", "gather"}
+    assert all("Used 7 registers" in log for log in logs.values())
+    assert build.seconds["newton"] < 1.0 <= build.seconds["gather"]
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        os.path.basename(build._paths(n)[1]) for n in ("newton", "gather"))
+    took = dict(build.seconds)
+    assert build.build(("newton",)) == {"newton": logs["newton"]}
+    assert build.seconds == took               # nothing was compiled again

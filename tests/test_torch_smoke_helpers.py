@@ -76,3 +76,36 @@ def test_ptxas_summary_reads_each_instance():
     assert "12 registers" not in summary
     assert chip_smoke.ptxas_summary("", "stage_kernel") == (
         "not in the build log")
+
+
+def test_ptxas_usage_reads_template_instances():
+    """One entry per instance, keyed by its integer template argument;
+    spills are the stores and loads together."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_113newton_kernelILi25EEEvPKfS2_Pfi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers, 30000 bytes smem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_113newton_kernelILi33EEEvPKfS2_Pfi' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'",
+        "ptxas info    : Used 12 registers"])
+    usage = chip_smoke.ptxas_usage(log, "newton_kernel")
+    assert usage == {25: [72, 0], 33: [128, 12]}
+    line = chip_smoke.usage_line(usage, pick=25)
+    assert line == ("2 instances, 72-128 registers, 12 bytes spilled "
+                    "(n=25: 72 registers, 0 bytes spilled)")
+    one = chip_smoke.ptxas_usage(log.replace("newton", "gather"),
+                                 "gather_kernel")
+    assert len(one) == 2
+    assert chip_smoke.usage_line({}) == "not in the build log"
+
+
+def test_rate_reports_unmeasured_device_time():
+    """A device time the profiler did not record reads "not measured",
+    never a rate from a zero time."""
+    assert chip_smoke.device_rate(3.35e9, 0.0, 1.0) == "not measured"
+    assert chip_smoke.device_rate(3.35e9, 2.0, 1.0) == (
+        "2.0000 ms, 1.675 TB/s, 50.0 % of the bound")
