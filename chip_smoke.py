@@ -12,7 +12,8 @@ Phases (each prints one line; any failure exits non-zero):
   3. K1     -- the Newton kernel against its plain twin and a float64
                solve at n=25, B=7,680; its backward against the twin's;
                its time per call and on the device, and the share of
-               its bound;
+               its bound; and at B=64, below the JAX package's batch gate,
+               against float64 and against the port's plain solve;
   4. K2     -- the cascade kernel's chunked entry at the flagship
                geometry (B=32, N=240, P=80, M=199, S=20) against its
                folded twin and its direct plain version: time, bound,
@@ -43,18 +44,25 @@ Phases (each prints one line; any failure exits non-zero):
                (2,560 systems), through the solve kernel's backward;
  12. K3     -- the same for the unchunked entry at B=32, N=240, S=20
                and (P, M) = (240, 199) and (80, 79);
- 13. K6, K7 -- the windowed gather and the overlap-add against their twins
-               at the shapes of every call site of [world] (recorded from
-               one call), and their backwards; the gather's time per
-               call and on the device, at each site and summed, with
-               its rate and share of the bound;
+ 13. K6, K7, K8 -- the windowed gather, the overlap-add and the threefry
+               draws against their twins at the shapes of every call site
+               of [world] (recorded from one call), and the first two's
+               backwards; each kernel's time per call and on the device,
+               with its rate and share of the bound (the gather at each
+               site and summed); for the overlap-add, the load that the
+               slot table puts on its blocks, and the kernel against
+               overlap_add_grouped, its computation in torch in the same
+               order (bit for bit); for the draws, bits equal to the
+               twin's and normals within rtol 1e-6;
  14. world  -- WorldVocoder(ap_algorithm="d4c").analysis_synthesis
                (BASELINE.json configs[3], YIN for its neural tracker) on
                32 x 19,200 float32 samples: launch counts, the kernel path
-               against the twin path on the same noise, row 0 against a
-               float64 CPU run on the same noise, the log-energy and
+               against the twin path (the same random stream: JAX's
+               threefry), row 0 against a float64 CPU run on the same
+               noise (recorded), the log-energy and
                spectrogram correlations of y with x, the median and p90
-               of 20 calls, and the profiler's device breakdown;
+               of 20 calls, the profiler's device breakdown and busy
+               share, and the noise draws' device time;
  15. world-tandem -- the same with TANDEM, the model's default;
  16. world-grad -- one backward of the chain on 4 x 12,800 samples, through
                the gather's and the overlap-add's backwards;
@@ -768,9 +776,53 @@ def check_gather(torch, sites, card: str, ptxas: str) -> dict:
                 bound_by="bytes", library_ms=lib_ms)
 
 
+def ola_tile_stats(torch, tidx, L: int, out_len: int, group: int,
+                   tile: int = 256) -> str:
+    """The load that a slot table puts on the overlap-add's blocks.  For
+    each output tile of ``tile`` samples: the slots whose window covers
+    part of it (a block's serial chain in the one-pass design that owned
+    a tile: mean and max), and the share of all response values read that
+    the heaviest 5 % of tiles carry.  For the two-pass design (groups of
+    ``group`` slots, csrc/ola.cu): the slots that one block of ``tile``
+    workspace values walks, mean and max."""
+    t = tidx.long().cpu()
+    B, P = t.shape
+    n_t = -(-out_len // tile)
+    t0 = torch.arange(n_t) * tile
+    lo = torch.searchsorted(t, (t0 - L + 1).expand(B, -1).contiguous())
+    hi = torch.searchsorted(t, (t0 + tile).expand(B, -1).contiguous())
+    walk = (hi - lo).double().reshape(-1)
+    cover = torch.zeros(B, n_t * tile + L + 1, dtype=torch.int64)
+    cover.scatter_add_(1, t, torch.ones_like(t))
+    cover.scatter_add_(1, t + L, -torch.ones_like(t))
+    values = cover.cumsum(1)[:, :n_t * tile].reshape(B, n_t, tile).sum(-1)
+    values = values.double().reshape(-1)
+    heavy = torch.argsort(walk, descending=True)[
+        :max(1, round(0.05 * walk.numel()))]
+    share = float(values[heavy].sum() / values.sum())
+    G = -(-P // group)
+    W = out_len + G * L
+    w0 = torch.arange(-(-W // tile)) * tile
+    chain = torch.zeros(B, w0.numel(), dtype=torch.int64)
+    for g in range(G):
+        s = t[:, g * group:(g + 1) * group].contiguous()
+        t_lo = (w0 - g * L).expand(B, -1).contiguous()
+        chain += (torch.searchsorted(s, t_lo + tile)
+                  - torch.searchsorted(s, t_lo - L + 1))
+    return (f"slots over each {tile}-sample output tile: mean "
+            f"{float(walk.mean()):.1f}, max {float(walk.max()):.0f}, the "
+            f"heaviest 5 % of tiles carry {100 * share:.1f} % of the "
+            f"response values read; two passes ({G} groups of {group} "
+            f"slots, workspace {B * W * 4 / 1e6:.2f} MB): a block walks "
+            f"{float(chain.double().mean()):.1f} slots on average, at most "
+            f"{int(chain.max())}")
+
+
 def check_ola(torch, site, card: str) -> dict:
-    """[K7]: the overlap-add kernel against its twin at the [world] call's
-    shapes, its backward, and times."""
+    """[K7]: the overlap-add kernel against its twin and against
+    overlap_add_grouped (its computation in torch in its order, bit for
+    bit) at the [world] call's shapes, its backward, times, and the load
+    of the slot table on its blocks."""
     from diffsptk_tpu_torch import twins
     from diffsptk_tpu_torch.kernels import ola
 
@@ -779,15 +831,20 @@ def check_ola(torch, site, card: str) -> dict:
     got = ola.overlap_add_cuda(tidx, resp, out_len)
     again = ola.overlap_add_cuda(tidx, resp, out_len)
     want = ola.overlap_add_plain(tidx, resp, out_len)
+    grouped = ola.overlap_add_grouped(tidx, resp, out_len)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     # Each output sums up to a few tens of responses in float32 in another
     # order than index_add's, so the two differ by rounding: within 1e-5
-    # of max|y|.  The kernel itself is deterministic.
+    # of max|y|.  The kernel itself is deterministic, and equal to the
+    # torch version of its order.
     check(err <= 1e-5 * scale,
           f"K7 disagrees with its twin: {err} > 1e-5 * {scale}")
     check(torch.equal(got, again), "K7 is not deterministic")
+    check(torch.equal(got, grouped),
+          f"K7 is not equal to overlap_add_grouped: "
+          f"{float((got - grouped).abs().max())}")
     r = resp.clone().requires_grad_(True)
     g = torch.randn(B, out_len, device=resp.device,
                     generator=torch.Generator(resp.device).manual_seed(4))
@@ -798,8 +855,12 @@ def check_ola(torch, site, card: str) -> dict:
         ola.overlap_add(tidx, r, out_len).backward(g)
     check(torch.equal(d_k, r.grad),
           "K7 backward (a gather) is not equal to the twin's")
-    ms = cuda_ms(torch, lambda: ola.overlap_add_cuda(tidx, resp, out_len),
-                 100)
+
+    def kernel():
+        return ola.overlap_add_cuda(tidx, resp, out_len)
+
+    ms = cuda_ms(torch, kernel, 100)
+    dev_ms, wrap_ms = kernel_device_ms(torch, kernel, "ola_")
     plain_ms = cuda_ms(torch, lambda: ola.overlap_add_plain(
         tidx, resp, out_len), 20)
     idx = (tidx[..., None].long() + torch.arange(L, device=resp.device)
@@ -812,16 +873,96 @@ def check_ola(torch, site, card: str) -> dict:
             0, idx, flat)
 
     lib_ms = cuda_ms(torch, library, 100)
-    nbytes = (resp.numel() + tidx.numel() + B * out_len) * 4.0
+    nbytes = (resp.numel() + B * out_len) * 4.0 + tidx.numel() * 8.0
     bound, by = bound_ms(nbytes, float(resp.numel()))
     print(f"[K7] B={B} slots={P} L={L} out={out_len}: |kernel-twin| "
           f"{err:.3e} (tol 1e-5 * max|y| = {1e-5 * scale:.3e}), two kernel "
-          f"runs equal; backward equal to the twin's; kernel {ms:.4f} ms, "
-          f"twin {plain_ms:.4f} ms, scatter_add_ on a prebuilt index "
-          f"{lib_ms:.4f} ms, {nbytes / 1e6:.2f} MB, bound {bound:.5f} ms "
-          f"({by}) | {card}", flush=True)
+          f"runs equal, equal to overlap_add_grouped; backward equal to the "
+          f"twin's; kernel {ms:.4f} ms per call, its two passes on the "
+          f"device {device_rate(nbytes, dev_ms, bound)} (everything the "
+          f"wrapper enqueues {wrap_ms:.4f} ms); twin {plain_ms:.4f} ms, "
+          f"scatter_add_ on a prebuilt index {lib_ms:.4f} ms, "
+          f"{nbytes / 1e6:.2f} MB, bound {bound:.5f} ms ({by}); "
+          + ola_tile_stats(torch, tidx, L, out_len, ola.GROUP)
+          + f" | {card}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms)
+
+
+def check_threefry(torch, sites, card: str) -> dict:
+    """[K8]: the threefry kernel against its twin (utils/prng.py, on the
+    card) at every draw of one [world] call: the windowed waveforms'
+    dithers (flat draws under PRNGKey(0)) and the synthesis's slot noise.
+    Bits equal; normals within rtol 1e-6 (the kernel's Horner steps fuse
+    their multiply-adds, the twin's do not).  Times of all the draws
+    together; bound from the output's bytes and the hashes' operations."""
+    from diffsptk_tpu_torch.kernels import threefry
+    from diffsptk_tpu_torch.utils import prng
+
+    ms = dev_ms = plain_ms = bound = nbytes = ops = err = rel = 0.0
+    shapes = []
+    for kind, (args, _) in sites:
+        if kind == "flat":
+            key, shape, device = args
+            n_keys, n = 0, int(np.prod(shape))
+            in_bytes = 0.0
+
+            def draw(bits=False, key=key, shape=shape, device=device):
+                return threefry.normal_cuda(key, shape, device, bits=bits)
+
+            def twin(bits=False, key=key, shape=shape, device=device):
+                k = key.to(device)
+                return (prng.bits(k, shape) if bits
+                        else prng.normal(k, shape, torch.float32))
+        else:
+            seed, ti, span, offset, length = args
+            n_keys = ti.numel()
+            n = n_keys * length
+            in_bytes = 8.0 * n_keys
+            shape = (*ti.shape, length)
+
+            def draw(bits=False, a=args):
+                return threefry.slot_normal_cuda(*a, bits=bits)
+
+            def twin(bits=False, a=args):
+                seed, ti, span, offset, length = a
+                if not bits:
+                    return prng.slot_normal(*a, torch.float32)
+                keys = prng.fold_in(prng.PRNGKey(seed, ti.device),
+                                    prng.slot_counters(ti, span, offset))
+                return prng.bits(keys, (length,))
+
+        got_bits, want_bits = draw(True).long() & prng.MASK, twin(True)
+        check(torch.equal(got_bits, want_bits),
+              f"K8 {kind} {tuple(shape)}: bits differ from the twin's")
+        got, want = draw(), twin()
+        torch.cuda.synchronize()
+        site_rel = float(((got - want).abs() / want.abs()).max())
+        check(site_rel <= 1e-6,
+              f"K8 {kind} {tuple(shape)}: normals {site_rel} from the "
+              f"twin's (rtol 1e-6)")
+        rel = max(rel, site_rel)
+        err = max(err, float((got - want).abs().max()))
+        ms += cuda_ms(torch, draw, 50)
+        dev_ms += kernel_device_ms(torch, draw, "threefry")[0]
+        plain_ms += cuda_ms(torch, twin, 3, warm=1)
+        b = 4.0 * n + in_bytes
+        o = threefry.operations(n, n_keys)
+        nbytes += b
+        ops += o
+        bound += bound_ms(b, o)[0]
+        shapes.append(f"{kind} {tuple(shape)}")
+    by = bound_ms(nbytes, ops)[1]
+    print(f"[K8] {len(sites)} draws of one [world] call ("
+          + ", ".join(shapes) + f"): bits equal to the twin's, normals "
+          f"within {rel:.3e} relative (tol 1e-6), max abs {err:.3e}; all "
+          f"draws: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, library "
+          f"none (torch.randn draws other numbers), {nbytes / 1e6:.2f} MB "
+          f"out, {ops / 1e9:.3f} G operations, bound {bound:.5f} ms ({by}); "
+          f"the kernel's device time {device_rate(nbytes, dev_ms, bound)} "
+          f"| {card}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
 
 
 class NoiseTape:
@@ -881,34 +1022,41 @@ def world_metrics(torch, xs, y):
 
 
 def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
-              full: bool) -> tuple[dict, list, list]:
+              full: bool) -> tuple[dict, list, list, list]:
     """[world] / [world-tandem]: WorldVocoder on the card, float32.
-    Returns the launch counts and, when ``full``, the recorded gather and
-    overlap-add call sites of one call."""
+    Returns the launch counts and the recorded gather, overlap-add and
+    noise-draw call sites of one call."""
     import diffsptk_tpu_torch as pt
     from diffsptk_tpu_torch import twins
-    from diffsptk_tpu_torch.kernels import gather, ola
+    from diffsptk_tpu_torch.kernels import gather, ola, threefry
     from diffsptk_tpu_torch.ops import world_common as wc
 
     B, T = xs.shape
     voc = pt.WorldVocoder(ap_algorithm=ap_algorithm, device="cuda",
                           dtype=torch.float32)
-    want = {"d4c": 3 + 8, "tandem": 3 + 1}[ap_algorithm]
-    gather_sites, ola_sites = [], []
+    want = {"gather": {"d4c": 3 + 8, "tandem": 3 + 1}[ap_algorithm],
+            "ola": 1,
+            # dithers: CheapTrick 1, D4C 3 (two centroids, the smoothed
+            # spectrum); the synthesis's slot noise 1
+            "threefry": {"d4c": 1 + 3 + 1, "tandem": 1 + 1}[ap_algorithm]}
+    gather_sites, ola_sites, flat, slots = [], [], [], []
     with torch.no_grad():
-        gather.launches = ola.launches = 0
+        gather.launches = ola.launches = threefry.launches = 0
         tape = NoiseTape(torch, wc, voc.synth)
         undo = [tape.record(),
                 record_calls(gather, "gather_windows_cuda", gather_sites),
-                record_calls(ola, "overlap_add_cuda", ola_sites)]
+                record_calls(ola, "overlap_add_cuda", ola_sites),
+                record_calls(threefry, "normal_cuda", flat),
+                record_calls(threefry, "slot_normal_cuda", slots)]
         f0, ap, sp = voc.analyze(xs)
         y = voc.synthesize(f0, ap, sp, out_length=T)
         torch.cuda.synchronize()
         for u in undo:
             u()
-        launches = {"gather": gather.launches, "ola": ola.launches}
-        check(launches == {"gather": want, "ola": 1},
-              f"{tag}: launches {launches}, expected gather {want}, ola 1")
+        launches = {"gather": gather.launches, "ola": ola.launches,
+                    "threefry": threefry.launches}
+        check(launches == want,
+              f"{tag}: launches {launches}, expected {want}")
         check(tuple(y.shape) == (B, T) and bool(torch.isfinite(y).all()),
               f"{tag}: output is not finite or has the wrong shape")
         with twins():
@@ -916,8 +1064,9 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
             y_p = voc.synthesize(f0_p, ap_p, sp_p, out_length=T)
         torch.cuda.synchronize()
         check(torch.equal(f0, f0_p), f"{tag}: f0 of the two paths differ")
-        # The analysis differs only in the gathers (copies): sp and ap must
-        # agree to rounding; y sums the overlap-add in another order.
+        # The analysis differs only in the gathers (copies) and the
+        # dithers' last bits: sp and ap must agree to rounding; y sums the
+        # overlap-add in another order.
         err_sp = float(((sp - sp_p).abs() / sp_p.abs().amax(-1, True)).max())
         err_ap = float((ap - ap_p).abs().max())
         err_y = float((y - y_p).abs().max())
@@ -935,6 +1084,8 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
         if full:
             voc64 = pt.WorldVocoder(ap_algorithm=ap_algorithm, device="cpu",
                                     dtype=torch.float64)
+            # the card's noise: JAX's float64 stream draws other numbers
+            # than its float32 one (other bits make each uniform)
             undo = tape.replay(voc64.synth)
             f0_64, ap_64, sp_64 = voc64.analyze(xs[:1].double().cpu())
             y64 = voc64.synthesize(f0_64, ap_64, sp_64, out_length=T)
@@ -978,8 +1129,12 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
     if full:
         busy_ms, top, n_device, _ = profile_chain(
             torch, lambda: voc.analysis_synthesis(xs))
+        noise_ms = kernel_device_ms(
+            torch, lambda: voc.analysis_synthesis(xs), "threefry", calls=3)[0]
         prof = (f"; device busy {busy_ms:.3f} ms ({100 * busy_ms / med:.1f} "
-                f"%) in {n_device:.0f} device functions per call; top device "
+                f"%) in {n_device:.0f} device functions per call; noise "
+                f"draws (threefry, {launches['threefry']} launches) "
+                f"{noise_ms:.4f} ms of device time per call; top device "
                 f"time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
     print(f"[{tag}] B={B} T={T}: launches {launches}; kernel path against "
           f"twin path: f0 equal, sp {err_sp:.3e} of each frame's max, ap "
@@ -990,7 +1145,8 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
           f"{med:.3f} ms per call (p90 {p90:.3f}, {len(calls)} calls), "
           f"{B * T / (med * 1e-3):.1f} samples/s; twin path {plain_ms:.3f} "
           f"ms" + prof + f" | {card}", flush=True)
-    return launches, gather_sites, ola_sites
+    noise = [("flat", c) for c in flat] + [("slot", c) for c in slots]
+    return launches, gather_sites, ola_sites, noise
 
 
 def world_grad(torch, xs, card: str) -> None:
@@ -1206,6 +1362,21 @@ def main() -> int:
     A32 = A64.float()
     b32 = b_t.T.contiguous()[..., None]
     k1_lib = cuda_ms(torch, lambda: torch.linalg.solve(A32, b32), 20)
+    # Below the JAX package's batch gate (2,048 systems), which the port
+    # does not keep (ops/mcep.py:_use_newton_kernel): the kernel against
+    # float64 and against the solve the port would run without it.
+    from diffsptk_tpu_torch.utils.linalg import spd_solve
+    Bs = 64
+    rt_s, b_s = rt_t[:, :Bs].contiguous(), b_t[:, :Bs].contiguous()
+    x_s = newton.newton_solve_lane_major(rt_s, b_s)
+    err_s = float((x_s.double() - x_64[:, :Bs]).abs().max())
+    check(bool(torch.allclose(x_s.double(), x_64[:, :Bs], rtol=tol,
+                              atol=tol)),
+          f"K1 at B={Bs} disagrees with the float64 solve: {err_s}")
+    A_s, bb_s = A64[:Bs].float(), b_s.T.contiguous()
+    k1_small = cuda_ms(torch, lambda: newton.newton_solve_lane_major(
+        rt_s, b_s), 200)
+    k1_small_plain = cuda_ms(torch, lambda: spd_solve(A_s, bb_s), 50)
     k1_bytes = (2 * n - 1 + 2 * n) * B * 4.0
     k1_bound, k1_by = bound_ms(k1_bytes,
                                B * (n ** 3 / 3 + 2 * n ** 2))
@@ -1218,7 +1389,9 @@ def main() -> int:
           f"torch.linalg.solve {k1_lib:.4f} ms, bound {k1_bound:.5f} ms "
           f"({k1_by}), {100 * k1_bound / k1_ms:.2f} % of the bound "
           f"reached; the kernel's device time "
-          f"{device_rate(k1_bytes, k1_dev, k1_bound)}; ptxas "
+          f"{device_rate(k1_bytes, k1_dev, k1_bound)}; at B={Bs}: "
+          f"|kernel-f64| {err_s:.3e}, kernel {k1_small:.4f} ms, the "
+          f"port's plain solve {k1_small_plain:.4f} ms; ptxas "
           f"newton_kernel: {newton_ptxas} | {card}", flush=True)
 
     # 4. K2: the cascade kernel's chunked entry at the flagship geometry
@@ -1408,14 +1581,15 @@ def main() -> int:
 
     # 14. and 13. the WORLD chain, then its kernels at its call sites
     xw = torch.as_tensor(synth_speech(32, 19200), device=dev)
-    launches_w, gather_sites, ola_sites = run_world(torch, xw, card, "d4c",
-                                                    "world", full=True)
+    launches_w, gather_sites, ola_sites, noise_sites = run_world(
+        torch, xw, card, "d4c", "world", full=True)
     report["gather"] = check_gather(torch, gather_sites, card,
                                     gather_ptxas)
     report["ola"] = check_ola(torch, ola_sites[0], card)
-    del gather_sites, ola_sites
-    report["gather"]["launches"] = launches_w["gather"]
-    report["ola"]["launches"] = launches_w["ola"]
+    report["threefry"] = check_threefry(torch, noise_sites, card)
+    del gather_sites, ola_sites, noise_sites
+    for key in ("gather", "ola", "threefry"):
+        report[key]["launches"] = launches_w[key]
 
     # 15. and 16. TANDEM, and the gradient
     run_world(torch, xw, card, "tandem", "world-tandem", full=False)
@@ -1443,6 +1617,10 @@ def main() -> int:
                    "diffsptk_tpu/kernels/pallas_gather.py:34"),
         "ola": ("cuda", "diffsptk_tpu_torch/csrc/ola.cu",
                 "diffsptk_tpu/kernels/pallas_ola.py:26"),
+        "threefry": ("cuda", "diffsptk_tpu_torch/csrc/threefry.cu",
+                     "diffsptk_tpu/ops/world_common.py:293-298 and "
+                     "diffsptk_tpu/ops/world_synth.py:128-143 "
+                     "(jax.random.normal; not a Pallas kernel)"),
     }
     for key, (route, source, replaces) in meta.items():
         r = report[key]

@@ -20,7 +20,17 @@ from .freqt import FrequencyTransform, design_freqt
 
 
 def _use_newton_kernel(x: torch.Tensor, n: int) -> bool:
-    """The kernel takes float32 systems of order <= 33 on the card."""
+    """The kernel takes float32 systems of order <= 33 on the card, at
+    any batch.
+
+    The JAX package also asks for a batch of at least 2,048 systems
+    (diffsptk_tpu/ops/mcep.py:35-36), below which XLA's batched Cholesky
+    served the TPU better than a Pallas launch.  The port keeps no batch
+    gate, by choice: on the H100 the kernel is faster than the plain path
+    at small batches too (one launch of one warp per system against a
+    Cholesky of many small batched torch calls; chip_smoke.py's [K1]
+    times both at 64 systems), and it stays within the 2e-4 bar of
+    float64 there (tests/test_torch_gpu.py)."""
     return x.is_cuda and x.dtype == torch.float32 and n <= MAX_ORDER
 
 

@@ -16,7 +16,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import threefry
 from ..kernels.gather import gather_windows
+from ..utils import prng
 
 TAU = 2 * np.pi
 
@@ -196,11 +198,11 @@ def frames_matching_f0(x, n_frames, frame_length, frame_period,
 
 
 def dither_noise(shape, dtype, device) -> torch.Tensor:
-    """The dither of the windowed waveform: standard normal, drawn from a
-    generator seeded with 0 in every call (the JAX package draws from
-    PRNGKey(0) in every call; the two give different numbers)."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    """The dither of the windowed waveform: standard normal under
+    PRNGKey(0) in every call, JAX's stream (the threefry kernel on the
+    card in float32, kernels/threefry.py), so the port dithers with the
+    JAX package's numbers."""
+    return threefry.normal(prng.PRNGKey(0), shape, dtype, device)
 
 
 def get_windowed_waveform(x, f0, window_length_ratio, bias_ratio,

@@ -8,10 +8,10 @@ with invalid slots masked, and one overlap-add of (B, max_pulses,
 fft_length) into (B, T + margin) ends it, through the overlap-add kernel
 (kernels/ola.py).
 
-The per-slot noise comes from a ``torch.Generator`` seeded with ``seed``
-in every call; it does not reproduce the JAX package's counter-keyed
-stream (the bits differ), which the sharded synthesis needs and which is
-not ported yet.
+The per-slot noise is the JAX package's counter-keyed stream: slot (b, p)
+draws under ``fold_in(PRNGKey(seed), b * span + time_index[b, p])``, so it
+does not depend on how the slot table is laid out (the threefry kernel on
+the card in float32, kernels/threefry.py).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..core import full_precision, place
+from ..kernels import threefry
 from ..kernels.ola import overlap_add
 from .world_common import TAU, noise_dft_plans, synthesis_response_plans
 
@@ -108,19 +109,20 @@ class WorldSynthesis(nn.Module):
                                                   dtype=torch.float64))
         place(self, device, dtype)
 
-    def _slot_noise(self, time_index: torch.Tensor, length: int,
-                    dtype) -> torch.Tensor:
-        """Per-slot Gaussian noise (B, Pmax, length) from a generator
-        seeded with ``seed``."""
-        B, Pmax = time_index.shape
-        gen = torch.Generator(device=time_index.device).manual_seed(self.seed)
-        return torch.randn((B, Pmax, length), generator=gen, dtype=dtype,
-                           device=time_index.device)
+    def _slot_noise(self, time_index: torch.Tensor, span: int,
+                    batch_offset, length: int, dtype) -> torch.Tensor:
+        """Per-slot Gaussian noise (B, Pmax, length) keyed by (global batch
+        row, pulse position), the JAX package's stream: ``span`` is the
+        counter stride between batch rows, ``batch_offset`` the global
+        index of row 0."""
+        return threefry.slot_normal(self.seed, time_index, span,
+                                    batch_offset, length, dtype)
 
     def _slot_responses(self, env, apr, vuv, time_shift, noise_size,
-                        valid, time_index) -> torch.Tensor:
+                        valid, time_index, span: int) -> torch.Tensor:
         """Per-slot periodic + aperiodic responses (B, Pmax, L), already
-        masked by slot validity."""
+        masked by slot validity; ``span`` is the noise counters' row
+        stride."""
         L = self.fft_length
         D = env.shape[-1]
         dt = env.dtype
@@ -129,7 +131,8 @@ class WorldSynthesis(nn.Module):
         # GetNoiseSpectrum(): noise_length samples, zero-padded to L by
         # the real-DFT plans.
         Ln = self.noise_length
-        noise = self._slot_noise(time_index, Ln, dt)
+        noise = self._slot_noise(time_index, span=span, batch_offset=0,
+                                 length=Ln, dtype=dt)
         Cn, Sn, Hm, Pfold = _plans(L, Ln, dt, dev)
         mask = self.ramp[:Ln] < noise_size
         noise = noise * mask
@@ -257,11 +260,13 @@ class WorldSynthesis(nn.Module):
                                 append=time_index[:, -1:])
         noise_size = torch.clamp(noise_size, min=0)[..., None].to(sp.dtype)
         response = self._slot_responses(env, apr, vuv, time_shift,
-                                        noise_size, valid, time_index)
+                                        noise_size, valid, time_index, T)
 
         # Synthesis(): the overlap-add kernel.
         margin = (L + P - 1) // P * P
-        y = overlap_add(time_index, response, T + margin)
+        # The slot table is sorted and in range by construction: no check
+        # (a host read that would stall the host mid-chain).
+        y = overlap_add(time_index, response, T + margin, check=False)
         y = y[:, H:H + T]
 
         if one_d:

@@ -136,3 +136,41 @@ def test_wrappers_reject_cpu_tensors_for_the_kernel():
                              torch.zeros(1, 2, 4), 10)
     with pytest.raises(TypeError):
         gather.gather_windows(x, torch.zeros(1, 2), 4)
+
+
+@pytest.mark.parametrize("B,P,L,out_len,repeat", [
+    (2, 200, 64, 3000, 150), (3, 1, 10, 40, 0), (1, 65, 33, 90, 0),
+    (2, 130, 257, 5000, 60), (2, 64, 5, 5, 0)])
+def test_ola_grouped_matches_twin(B, P, L, out_len, repeat):
+    """The kernel's two-pass order in torch (groups of ola.GROUP slots
+    into a workspace, then each output's covering groups) against the
+    index_add twin at float64, with and without a permutation of the
+    response rows; runs of equal starts, one slot, a second group of one
+    slot, windows as long as the row."""
+    t = torch.as_tensor(_slots(B, P, out_len, L, seed=4) if P > 3 else
+                        np.sort(RNG.integers(0, out_len - L + 1, (B, P)), -1))
+    if repeat:
+        t[:, -repeat:] = t[:, -repeat - 1:-repeat]
+    r = torch.as_tensor(RNG.standard_normal((B, P, L)))
+    want = ola.overlap_add_plain(t, r, out_len)
+    torch.testing.assert_close(ola.overlap_add_grouped(t, r, out_len), want,
+                               rtol=1e-12, atol=1e-12)
+    perm = torch.as_tensor(np.stack([RNG.permutation(P) for _ in range(B)]))
+    torch.testing.assert_close(
+        ola.overlap_add_grouped(t, r, out_len, perm=perm),
+        ola.overlap_add_plain(t, torch.gather(r, 1, perm[..., None].expand(
+            -1, -1, L)), out_len), rtol=1e-12, atol=1e-12)
+
+
+def test_ola_unchecked_skips_the_range_check_only():
+    """check=False (WORLD's synthesis, whose slot table is in range and
+    sorted by construction) reads nothing back; shapes and types are still
+    checked."""
+    r = torch.ones(1, 3, 10)
+    t = torch.tensor([[0, 5, 20]])
+    torch.testing.assert_close(ola.overlap_add(t, r, 30, check=False),
+                               ola.overlap_add(t, r, 30))
+    with pytest.raises(TypeError):
+        ola.overlap_add(t.double(), r, 30, check=False)
+    with pytest.raises(ValueError):
+        ola.overlap_add(t[:, :2], r, 30, check=False)

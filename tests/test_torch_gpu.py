@@ -14,8 +14,11 @@ twin and of the direct plain version (fp32 arithmetic in another order
 than the twin's matmuls and the direct version's sums); the windowed
 gather equal to
 its twin (a copy); the overlap-add and the gather's backward within 1e-5
-of their twins (sums in another order than index_add's); the SPD solve kernel within 1e-4 of
-max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
+of their twins (sums in another order than index_add's), and the
+overlap-add equal to overlap_add_grouped (its own order, in torch); the
+threefry kernel's bits equal to its twin's and its normals within rtol 1e-6
+(fused multiply-adds in erfinv's polynomial); the SPD solve kernel within
+1e-4 of max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
 within 2e-5 (float32) and 1e-4 (complex64) of its twin, its backward
 within 1e-4 (the tolerances of tests/test_pallas_scan.py).
 """
@@ -28,7 +31,15 @@ import torch
 
 import diffsptk_tpu_torch as pt
 from chip_smoke import synth_speech
-from diffsptk_tpu_torch.kernels import gather, mlsa, newton, ola, scan, solve
+from diffsptk_tpu_torch.kernels import (
+    gather,
+    mlsa,
+    newton,
+    ola,
+    scan,
+    solve,
+    threefry,
+)
 from diffsptk_tpu_torch.kernels.mlsa_cascade import (
     chunked_geometry,
     lane_aligned_nfft,
@@ -37,6 +48,7 @@ from diffsptk_tpu_torch.kernels.mlsa_cascade import (
     taylor_cascade_folded,
     taylor_cascade_unchunked,
 )
+from diffsptk_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.gpu
 
@@ -515,3 +527,148 @@ def test_world_vocoder_takes_gather_and_ola(cuda):
     y64 = voc64.analysis_synthesis(x.double())
     assert (gather.launches, ola.launches) == (11, 1)
     assert torch.isfinite(y64).all()
+
+
+def _ola_case(cuda, t, L, out_len, seed):
+    """Two launches equal, equal to overlap_add_grouped, and within 1e-5
+    of max|y| of the twin (index_add, in another order: with hundreds of
+    slots over one sample, the float32 partial sums reach tens of times
+    an output's size, so the bar is [K7]'s, relative to max|y|)."""
+    B, P = t.shape
+    r = torch.randn(B, P, L, **_f32(cuda, seed))
+    before = ola.launches
+    got = ola.overlap_add(t, r, out_len)
+    assert ola.launches == before + 1
+    assert torch.equal(got, ola.overlap_add(t, r, out_len))
+    assert torch.equal(got, ola.overlap_add_grouped(t, r, out_len))
+    want = ola.overlap_add_plain(t, r, out_len)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("B,P,L,out_len,repeat", [
+    (2, 600, 1024, 4321, 500),     # 500 slots at one start, as WORLD's tail
+    (3, 1, 100, 700, 0),           # one slot
+    (2, 1, 1024, 1024, 0),         # one slot filling the row
+    (2, 300, 1023, 5000, 40),      # L not a multiple of 4
+    (4, 130, 37, 999, 0),          # L < the tile, out_len not a multiple
+    (1, 65, 256, 257, 0),          # two groups, the second of one slot
+    (5, 743, 1024, 20320, 550),    # [world]'s table size
+])
+def test_ola_kernel_awkward_tables(cuda, B, P, L, out_len, repeat):
+    t = _slots(cuda, B, P, L, out_len, 18)
+    if repeat:
+        t[:, -repeat:] = t[:, -repeat - 1:-repeat]
+    _ola_case(cuda, t, L, out_len, 19)
+
+
+def test_ola_kernel_all_slots_at_one_start(cuda):
+    t = torch.full((2, 500), 7, device=cuda)
+    _ola_case(cuda, t, 64, 100, 20)
+    _ola_case(cuda, torch.zeros_like(t), 100, 100, 21)
+
+
+def test_ola_kernel_permuted_rows(cuda):
+    """The gather's backward: sorted starts, responses in another order."""
+    t = _slots(cuda, 3, 200, 130, 3000, 22)
+    r = torch.randn(3, 200, 130, **_f32(cuda, 23))
+    perm = torch.argsort(torch.rand(3, 200, device=cuda), dim=-1)
+    got = ola.overlap_add_cuda(t, r, 3000, perm=perm)
+    assert torch.equal(got, ola.overlap_add_grouped(t, r, 3000, perm=perm))
+    want = ola.overlap_add_plain(
+        t, torch.gather(r, 1, perm[..., None].expand(-1, -1, 130)), 3000)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_world_synthesis_makes_no_host_read(cuda):
+    """The synthesis, its slot noise and its overlap-add enqueue without a
+    synchronising call (the overlap-add's range check is off there)."""
+    x = torch.as_tensor(synth_speech(2, 4000), device=cuda)
+    voc = pt.WorldVocoder(ap_algorithm="d4c", device=cuda,
+                          dtype=torch.float32)
+    with torch.no_grad():
+        f0, ap, sp = voc.analyze(x)
+        voc.synthesize(f0, ap, sp)          # first call: plans, libraries
+        torch.cuda.synchronize()
+        before = (ola.launches, threefry.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = voc.synthesize(f0, ap, sp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert (ola.launches, threefry.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert torch.isfinite(y).all()
+
+
+def _keys():
+    return [prng.PRNGKey(0), prng.fold_in(prng.PRNGKey(5), 77),
+            prng.split(prng.PRNGKey(2 ** 40 + 1), 3)[1]]
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (2, 5, 333),
+                                   (32, 241, 1024)])
+def test_threefry_flat_matches_twin(cuda, shape):
+    for key in _keys():
+        before = threefry.launches
+        got_bits = threefry.normal_cuda(key, shape, cuda, bits=True)
+        assert threefry.launches == before + 1
+        assert torch.equal(got_bits.long() & prng.MASK,
+                           prng.bits(key.to(cuda), shape))
+        torch.testing.assert_close(
+            threefry.normal_cuda(key, shape, cuda),
+            prng.normal(key.to(cuda), shape, torch.float32), rtol=1e-6,
+            atol=0)
+
+
+@pytest.mark.parametrize("B,P,length,span,offset", [
+    (1, 1, 1, 10, 0), (2, 9, 130, 4000, 0), (3, 7, 257, 2 ** 30 + 3, 1),
+    (32, 743, 384, 19280, 0)])
+def test_threefry_slot_matches_twin(cuda, B, P, length, span, offset):
+    ti = torch.sort(torch.randint(0, 4000, (B, P), device=cuda,
+                                  generator=torch.Generator(
+                                      cuda).manual_seed(24)), -1).values
+    if P > 3:
+        ti[:, -3:] = ti[:, -4:-3]
+    got_bits = threefry.slot_normal_cuda(5, ti, span, offset, length,
+                                         bits=True)
+    keys = prng.fold_in(prng.PRNGKey(5, cuda),
+                        prng.slot_counters(ti, span, offset))
+    assert torch.equal(got_bits.long() & prng.MASK,
+                       prng.bits(keys, (length,)))
+    torch.testing.assert_close(
+        threefry.slot_normal_cuda(5, ti, span, offset, length),
+        prng.slot_normal(5, ti, span, offset, length, torch.float32),
+        rtol=1e-6, atol=0)
+
+
+def test_threefry_dispatch(cuda):
+    """float32 on the card launches the kernel; float64 and twins() take
+    the twin."""
+    key = prng.PRNGKey(3)
+    before = threefry.launches
+    threefry.normal(key, (4, 9), torch.float32, cuda)
+    assert threefry.launches == before + 1
+    y64 = threefry.normal(key, (4, 9), torch.float64, cuda)
+    with pt.twins():
+        y32 = threefry.normal(key, (4, 9), torch.float32, cuda)
+    assert threefry.launches == before + 1
+    assert y64.dtype == torch.float64 and y32.is_cuda
+    torch.testing.assert_close(y64, prng.normal(key, (4, 9),
+                                                torch.float64).to(cuda))
+
+
+def test_mcep_below_the_jax_batch_gate_takes_the_kernel(cuda):
+    """64 frames, far below the JAX package's gate of 2,048 systems: the
+    Newton kernel runs each of the 10 steps, within 2e-4 of float64."""
+    x = synth_speech(1, 64 * 400).astype(np.float64).reshape(64, 400)
+    X = np.abs(np.fft.rfft(x * np.hanning(400), 512)) ** 2 + 1e-8
+    kw = dict(fft_length=512, cep_order=24, alpha=0.42, n_iter=10)
+    op = pt.MelCepstralAnalysis(**kw, device=cuda, dtype=torch.float32)
+    before = newton.launches
+    got = op(torch.as_tensor(X, dtype=torch.float32, device=cuda))
+    assert newton.launches == before + 10
+    want = pt.MelCepstralAnalysis(**kw, device="cpu", dtype=torch.float64)(
+        torch.as_tensor(X))
+    torch.testing.assert_close(got.double().cpu(), want, rtol=2e-4,
+                               atol=2e-4)

@@ -6,7 +6,9 @@ of buffers.
 Both sides get the same random numbers: the windowed-waveform dither and
 the per-slot synthesis noise come from numpy tables (``jax.random.normal``
 is patched for the JAX side, as the JAX package draws the dither from it;
-``world_common.dither_noise`` and ``_slot_noise`` for the port).  Inputs
+``world_common.dither_noise`` and ``_slot_noise`` for the port), so these
+tests hold the arithmetic apart from the random streams, which
+tests/test_torch_world_noise.py holds unpatched.  Inputs
 are synthetic speech made from a seed (chip_smoke.synth_speech), B=2,
 T=4,000 (51 frames).
 
@@ -57,7 +59,7 @@ def _j_noise(time_index, span, batch_offset, length, dtype):
     return jnp.asarray(NOISE[:B, :Pmax, :length], dtype)
 
 
-def _t_noise(time_index, length, dtype):
+def _t_noise(time_index, span, batch_offset, length, dtype):
     B, Pmax = time_index.shape
     return torch.as_tensor(NOISE[:B, :Pmax, :length], dtype=dtype)
 
@@ -240,9 +242,9 @@ def _t_with_slots(monkeypatch, fn, *args):
     seen = {}
     orig = t_synth_mod.overlap_add
 
-    def spy(tidx, resp, n):
+    def spy(tidx, resp, n, **kwargs):
         seen["tidx"] = tidx.numpy()
-        return orig(tidx, resp, n)
+        return orig(tidx, resp, n, **kwargs)
 
     monkeypatch.setattr(t_synth_mod, "overlap_add", spy)
     return fn(*args), seen["tidx"]
