@@ -20,9 +20,19 @@ Phases (each prints one line; any failure exits non-zero):
                rate against the fp32 peak, tile, ptxas' registers and
                spills, and a grouped conv1d reference;
   5. K4     -- the SPD solve kernel against its twin at n = 13, 24, 33,
-               64 and B=7,680, and its backward;
+               64 and, at its template edges, 1, 8, 9, 16, 17, 25, 32,
+               40, 63, all at B=7,680, with each n's device time and
+               share of the bound; an indefinite system gives NaN; its
+               backward; at n=24 its times, and the host time of the
+               wrapper and of its bare C entry (time.perf_counter_ns over
+               1,000 calls each) with their difference;
   6. K5     -- the scan kernel, float32 and complex64, against its twin
-               at R=32, T=19,200 and at an odd T, and its backward;
+               at R=32, T=19,200, an odd T and T=1, and at one row of
+               more than 1,024 tiles (more than 32 groups of 32); two
+               runs equal bit for bit; its backward; one device function
+               per scan; its device time, tile and blocks, the host time
+               of the wrapper and of its C entry, and torch.cumsum's time
+               on the same float32 shape;
   7. chain  -- MelCepstralVocoder(cascade="fused").analysis_synthesis on
                32 x 19,200 float32 samples: launch counts of the run, the
                kernel path against the twin path, a float64 CPU run of
@@ -263,15 +273,64 @@ def spd_systems(B: int, n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
             rng.standard_normal((B, n)).astype(np.float32))
 
 
+def host_us(torch, fn, calls: int = 1000, batch: int = 100) -> float:
+    """Host microseconds per call of ``fn``: time.perf_counter_ns over
+    ``calls`` calls, in batches of ``batch`` with the card synchronised
+    between them (outside the timing), so that a full launch queue does
+    not hold the host."""
+    fn()
+    total = 0
+    for _ in range(calls // batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / calls / 1e3
+
+
+def host_overhead(torch, mod, a, b) -> str:
+    """Host microseconds per call of the SPD solve (``mod`` kernels/solve.py;
+    a = A, b = b) or scan (kernels/scan.py; a = p, b = x) wrapper and of
+    its bare C entry on the same inputs (``host_us``: 1,000 calls each),
+    and their difference, the wrapper's own host work."""
+    dev = b.device
+    out = torch.empty_like(b)
+    if hasattr(mod, "spd_solve_batched"):
+        n = b.shape[-1]
+        entry = mod._lib()
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, b.numel() // n)
+        call = lambda: mod.spd_solve_batched(a, b)  # noqa: E731
+    else:
+        T = b.shape[-1]
+        R = b.numel() // T
+        entries, nbytes = mod._lib()
+        tiles = R * -(-T // mod.TILE)
+        ws = torch.zeros(nbytes(tiles), dtype=torch.uint8, device=dev)
+        entry = entries[b.dtype]
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                tiles, R, T)
+        call = lambda: mod.first_order_scan(a, b)  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    whole = host_us(torch, call)
+    bare = host_us(torch, lambda: entry(*args, stream))
+    return (f"whole call {whole:.2f}, C entry {bare:.2f}, the rest of the "
+            f"wrapper {whole - bare:.2f}")
+
+
 def check_spd_solve(torch, dev, card: str) -> dict:
-    """[K4]: the SPD solve kernel against its twin across n at B=7,680,
-    the backward at n=24, and times at the LPC shapes (n=24)."""
+    """[K4]: the SPD solve kernel against its twin across n at B=7,680
+    (the orders it has an instance for and those it pads), each n's
+    device time and share of the bound; an indefinite system; the
+    backward at n=24; times and the wrapper's host work at the LPC shapes
+    (n=24)."""
     from diffsptk_tpu_torch import twins
     from diffsptk_tpu_torch.kernels import solve
 
     B = 7680
-    errs = {}
-    for n in (13, 24, 33, 64):
+    errs, device = {}, {}
+    for n in (13, 24, 33, 64, 1, 8, 9, 16, 17, 25, 32, 40, 63):
         A, b = (torch.as_tensor(a, device=dev)
                 for a in spd_systems(B, n, seed=n))
         x_k = solve.spd_solve_batched(A, b)
@@ -281,8 +340,18 @@ def check_spd_solve(torch, dev, card: str) -> dict:
         errs[n] = float((x_k - x_p).abs().max()) / scale
         check(errs[n] < 1e-4, f"K4 at n={n} disagrees with its twin: "
               f"{errs[n]} of max|x|")
+        own = kernel_device_ms(torch, lambda: solve.spd_solve_batched(A, b),
+                               "spd_solve_kernel")[0]
+        bound = bound_ms((n * (n + 1) // 2 + 2 * n) * B * 4.0,
+                         B * (n ** 3 / 3 + 2 * n ** 2))[0]
+        device[n] = (own, bound)
         if n == 24:
             A24, b24, err24 = A, b, float((x_k - x_p).abs().max())
+    A = torch.eye(24, device=dev).repeat(64, 1, 1)
+    A[:, 0, 0] = -1.0
+    x = solve.spd_solve_batched(A, torch.ones(64, 24, device=dev))
+    check(bool(torch.isnan(x[:, 0]).all()),
+          "K4 gives no NaN for an indefinite system")
     Ag = A24.clone().requires_grad_(True)
     bg = b24.clone().requires_grad_(True)
     g = torch.cos(solve.spd_solve_plain(A24, b24))
@@ -308,40 +377,48 @@ def check_spd_solve(torch, dev, card: str) -> dict:
         return torch.cholesky_solve(b24[..., None], L)
 
     lib = cuda_ms(torch, library, 20)
-    device_ms, _, _, _ = profile_chain(
-        torch, lambda: solve.spd_solve_batched(A24, b24), 20)
-    bound, by = bound_ms((n * (n + 1) // 2 + 2 * n) * B * 4.0,
-                         B * (n ** 3 / 3 + 2 * n ** 2))
+    device_ms, bound = device[n]
+    by = bound_ms((n * (n + 1) // 2 + 2 * n) * B * 4.0,
+                  B * (n ** 3 / 3 + 2 * n ** 2))[1]
+    host = host_overhead(torch, solve, A24, b24)
     print(f"[K4] B={B}: |kernel-twin| / max|x| "
           + ", ".join(f"n={k} {v:.3e}" for k, v in errs.items())
-          + f" (tol 1e-4); backward at n=24 {err_grad:.3e} (rtol 1e-3, "
-          f"atol 1e-4); at n=24: kernel {ms:.4f} ms (device time "
+          + f" (tol 1e-4); indefinite system gives NaN; backward at n=24 "
+          f"{err_grad:.3e} (rtol 1e-3, atol 1e-4); kernel device ms (share "
+          f"of the bound): "
+          + ", ".join(f"n={k} {v[0]:.4f} ({100 * v[1] / v[0]:.1f} %)"
+                      if v[0] > 0 else f"n={k} not measured"
+                      for k, v in sorted(device.items()))
+          + f"; at n=24: kernel {ms:.4f} ms per call (device time "
           f"{device_ms:.4f} ms), twin {plain:.3f} ms, "
           f"cholesky+cholesky_solve {lib:.4f} ms, bound {bound:.5f} ms "
-          f"({by}) | {card}", flush=True)
+          f"({by}); host us per call: {host} | {card}", flush=True)
     return dict(max_abs_err=err24, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, library_ms=lib)
 
 
 def check_scan(torch, dev, card: str) -> dict:
     """[K5]: the scan kernel, float32 and complex64, against its twin at
-    R=32 and T = 19,200 and 19,199, the backward, and times at the LPC
-    order-1 shapes (float32)."""
+    R=32 and T = 19,200, 19,199 and 1, and at one row of more than 1,024
+    tiles; two runs equal bit for bit; the backward; one device function
+    per scan; times and the wrapper's host work at the LPC order-1 shapes
+    (float32), beside torch.cumsum's one pass over the same shape."""
     from diffsptk_tpu_torch import twins
     from diffsptk_tpu_torch.kernels import scan
 
     R = 32
+    long_T = 1074 * scan.TILE + 3
     rng = np.random.default_rng(31)
     errs = {}
     cases = {}
     for dtype in (torch.float32, torch.complex64):
         tol = 2e-5 if dtype == torch.float32 else 1e-4
-        for T in (19200, 19199):
-            p = 0.9 * rng.uniform(-1, 1, (R, T))
-            x = rng.standard_normal((R, T))
+        for rows, T in ((R, 19200), (R, 19199), (R, 1), (1, long_T)):
+            p = 0.9 * rng.uniform(-1, 1, (rows, T))
+            x = rng.standard_normal((rows, T))
             if dtype == torch.complex64:
-                p = p * np.exp(1j * rng.uniform(0, 2 * np.pi, (R, T)))
-                x = x + 1j * rng.standard_normal((R, T))
+                p = p * np.exp(1j * rng.uniform(0, 2 * np.pi, (rows, T)))
+                x = x + 1j * rng.standard_normal((rows, T))
             p, x = (torch.as_tensor(a, dtype=dtype, device=dev)
                     for a in (p, x))
             y_k = scan.first_order_scan(p, x)
@@ -351,6 +428,9 @@ def check_scan(torch, dev, card: str) -> dict:
             errs[key] = float((y_k - y_p).abs().max())
             check(bool(torch.allclose(y_k, y_p, rtol=tol, atol=tol)),
                   f"K5 {dtype} T={T} disagrees with its twin: {errs[key]}")
+            if T in (19200, long_T):
+                check(bool(torch.equal(y_k, scan.first_order_scan(p, x))),
+                      f"K5 {dtype} T={T}: two runs differ")
             cases[(dtype, T)] = (p, x)
     err_grad = 0.0
     for dtype in (torch.float32, torch.complex64):
@@ -374,18 +454,33 @@ def check_scan(torch, dev, card: str) -> dict:
     plain = cuda_ms(torch, lambda: scan.first_order_scan_plain(p, x), 20)
     pc, xc = cases[(torch.complex64, 19200)]
     ms_c = cuda_ms(torch, lambda: scan.first_order_scan(pc, xc), 200)
-    device_ms, _, _, _ = profile_chain(
+    _, _, n_device, _ = profile_chain(
         torch, lambda: scan.first_order_scan(p, x), 20)
+    check(n_device == 1, f"K5: a scan ran {n_device} device functions, "
+          "expected 1")
+    device_ms = kernel_device_ms(torch, lambda: scan.first_order_scan(p, x),
+                                 "scan_kernel")[0]
+    device_c = kernel_device_ms(torch, lambda: scan.first_order_scan(pc, xc),
+                                "scan_kernel")[0]
+    cumsum = cuda_ms(torch, lambda: torch.cumsum(p, -1), 200)
     bound, by = bound_ms(3 * R * T * 4.0, 2.0 * R * T)
     bound_c, _ = bound_ms(3 * R * T * 8.0, 8.0 * R * T)
+    host = host_overhead(torch, scan, p, x)
     print(f"[K5] R={R}: |kernel-twin| "
           + ", ".join(f"{k[0]} T={k[1]} {v:.3e}" for k, v in errs.items())
-          + f" (tol 2e-5 float32, 1e-4 complex64); backward {err_grad:.3e} "
-          f"(tol 1e-4); at T={T} float32: kernel {ms:.4f} ms (device "
-          f"time of its three passes {device_ms:.4f} ms), twin "
-          f"{plain:.3f} ms, bound {bound:.5f} ms ({by}); complex64: kernel "
-          f"{ms_c:.4f} ms, bound {bound_c:.5f} ms; library: none, no "
-          f"PyTorch call computes a first-order recurrence | {card}",
+          + f" (tol 2e-5 float32, 1e-4 complex64; T={long_T} is one row of "
+          f"{-(-long_T // scan.TILE)} tiles); two runs equal bit for bit; "
+          f"backward {err_grad:.3e} (tol 1e-4); at T={T} float32: tile "
+          f"{scan.TILE} samples, {R * -(-T // scan.TILE)} blocks, "
+          f"{n_device:.0f} device function per scan; kernel {ms:.4f} ms "
+          f"per call, device {device_rate(3 * R * T * 4.0, device_ms, bound)}"
+          f"; twin {plain:.3f} ms, bound {bound:.5f} ms ({by}); complex64: "
+          f"kernel {ms_c:.4f} ms per call, device "
+          f"{device_rate(3 * R * T * 8.0, device_c, bound_c)}, bound "
+          f"{bound_c:.5f} ms; host us per call: {host}; "
+          f"torch.cumsum over float32 ({R}, {T}), a one-pass scan of this "
+          f"shape and not the same function, {cumsum:.4f} ms; library: "
+          f"none, no PyTorch call computes a first-order recurrence | {card}",
           flush=True)
     return dict(max_abs_err=max(v for k, v in errs.items()
                                 if k[0] == "float32"),
@@ -586,6 +681,28 @@ def usage_line(usage: dict, pick=None) -> str:
         line += (f" (n={pick}: {usage[pick][0]} registers, "
                  f"{usage[pick][1]} bytes spilled)")
     return line
+
+
+def ptxas_smem_spills(log: str, kernel: str) -> str:
+    """The range of static shared memory over the instances of ``kernel``
+    in a build log (-Xptxas -v), and the template arguments of those that
+    spill."""
+    smem, key = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            arg = re.search(r"ILi(\d+)E", ln)
+            key = (int(arg.group(1)) if arg else ln) if kernel in ln \
+                else None
+        elif key is not None and "Used" in ln:
+            found = re.search(r"(\d+) bytes smem", ln)
+            smem[key] = int(found.group(1)) if found else 0
+    if not smem:
+        return "shared memory not in the build log"
+    spills = sorted(k for k, (_, sp) in ptxas_usage(log, kernel).items()
+                    if sp)
+    return (f"{min(smem.values())}-{max(smem.values())} bytes of shared "
+            f"memory; " + (f"spills at {spills}" if spills
+                           else "no instance spills"))
 
 
 def conv_stage(torch, x, c, P: int, M: int):
@@ -1289,6 +1406,8 @@ def main() -> int:
     logs = build.build()
     newton_ptxas = usage_line(
         ptxas_usage(logs.get("newton", ""), "newton_kernel"), pick=25)
+    solve_ptxas = usage_line(
+        ptxas_usage(logs.get("spd_solve", ""), "spd_solve_kernel"), pick=24)
     gather_ptxas = usage_line(
         ptxas_usage(logs.get("gather", ""), "gather_kernel"))
     for src, log in logs.items():
@@ -1297,6 +1416,11 @@ def main() -> int:
         if src == "newton":   # one instance per order
             print(f"[build] newton: {took}newton_kernel {newton_ptxas}",
                   flush=True)
+            continue
+        if src == "spd_solve":   # one instance per order rounded up to 8
+            print(f"[build] spd_solve: {took}spd_solve_kernel "
+                  f"{solve_ptxas}, "
+                  + ptxas_smem_spills(log, "spd_solve_kernel"), flush=True)
             continue
         keep = [ln.strip() for ln in log.splitlines()
                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]

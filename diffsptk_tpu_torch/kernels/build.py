@@ -17,6 +17,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -115,3 +117,15 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def launch(fn, what: str, device: torch.device, *args) -> None:
+    """Call the C entry ``fn(*args)``, which enqueues a kernel, with
+    ``device`` current (``torch.cuda.device`` is entered only when another
+    device is), and raise on a non-zero ``cudaError_t``."""
+    if device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    check(err, what)

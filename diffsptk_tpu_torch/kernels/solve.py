@@ -3,9 +3,11 @@ Function (counterpart of ``diffsptk_tpu/kernels/pallas_solve.py``).
 
 A (..., n, n), b (..., n) -> x = A^-1 b for every system.  On a CUDA
 float32 tensor the solve is ``csrc/spd_solve.cu`` (one warp per system,
-1 <= n <= 64); on a CPU tensor it is :func:`spd_solve_plain`, the masked
-right-looking Cholesky and both substitution sweeps in torch.  Both use
-only the lower triangle of A.
+its rows in registers, 1 <= n <= 64; n is padded on the fly to a multiple
+of 8, and :func:`spd_solve_padded` is that padding in torch); on a CPU
+tensor it is :func:`spd_solve_plain`, the masked right-looking Cholesky
+and both substitution sweeps in torch.  Both use only the lower triangle
+of A.
 
 The backward reuses the solve: for x = A^-1 b, b_bar = z = A^-1 g and
 A_bar = -z x^T (only its symmetrised form is contractual: every caller
@@ -23,6 +25,9 @@ from . import build
 from .state import use_twins
 
 MAX_ORDER = 64
+PAD_STEP = 8
+"""The kernel has one instance per order that is a multiple of this; a
+system of another order is padded with the identity up to the next one."""
 
 launches = 0
 """Number of kernel launches so far (the twin does not count)."""
@@ -61,6 +66,23 @@ def spd_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         x = x.clone()
         x[..., j] = xj
     return x
+
+
+def spd_solve_padded(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's padding in torch (a model, used by nothing on the main
+    path): A bordered with the identity and b with zeros up to the next
+    multiple of PAD_STEP, solved by :func:`spd_solve_plain` and cut back to
+    n.  The padded columns come after every real one, so the factor and the
+    forward sweep of the real entries never see them, and the backward
+    sweep adds only 0 * 0 terms: the result is the unpadded solve's."""
+    n = A.shape[-1]
+    N = -(-n // PAD_STEP) * PAD_STEP
+    Ap = torch.eye(N, dtype=A.dtype, device=A.device).expand(
+        A.shape[:-2] + (N, N)).clone()
+    Ap[..., :n, :n] = A
+    bp = torch.zeros(b.shape[:-1] + (N,), dtype=b.dtype, device=b.device)
+    bp[..., :n] = b
+    return spd_solve_plain(Ap, bp)[..., :n]
 
 
 def _check_args(A: torch.Tensor, b: torch.Tensor) -> int:
@@ -103,11 +125,10 @@ def spd_solve_batched(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     A = A.contiguous()
     b = b.contiguous()
     x = torch.empty_like(b)
-    B = b.numel() // n
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    with torch.cuda.device(A.device):
-        err = _lib()(A.data_ptr(), b.data_ptr(), x.data_ptr(), n, B, stream)
-    build.check(err, "spd_solve_f32")
+    device = A.device
+    build.launch(_lib(), "spd_solve_f32", device, A.data_ptr(), b.data_ptr(),
+                 x.data_ptr(), n, b.numel() // n,
+                 torch.cuda.current_stream(device).cuda_stream)
     launches += 1
     return x
 

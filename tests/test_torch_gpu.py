@@ -20,7 +20,8 @@ threefry kernel's bits equal to its twin's and its normals within rtol 1e-6
 (fused multiply-adds in erfinv's polynomial); the SPD solve kernel within
 1e-4 of max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
 within 2e-5 (float32) and 1e-4 (complex64) of its twin, its backward
-within 1e-4 (the tolerances of tests/test_pallas_scan.py).
+within 1e-4 (the tolerances of tests/test_pallas_scan.py), and equal bit
+for bit to itself: run twice, and replayed in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -218,8 +219,12 @@ def _spd(cuda, batch, n, seed=0):
 
 
 @pytest.mark.parametrize("n,B", [(1, 5), (13, 2048), (24, 7680), (33, 300),
-                                 (64, 2050)])
+                                 (64, 2050), (8, 301), (9, 301), (16, 302),
+                                 (17, 302), (25, 303), (32, 303), (40, 129),
+                                 (63, 131)])
 def test_spd_solve_kernel_matches_twin(cuda, n, B):
+    """Each order the kernel has an instance for (multiples of 8) and the
+    orders just past one, which it pads with the identity."""
     A, b = _spd(cuda, B, n)
     before = solve.launches
     x = solve.spd_solve_batched(A, b)
@@ -304,6 +309,54 @@ def test_scan_kernel_backward(cuda, complex_):
         loss().backward()
     torch.testing.assert_close(grads[0], p.grad, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(grads[1], x.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_scan_kernel_is_deterministic(cuda, complex_):
+    """Each tile composes every earlier tile's aggregate in a fixed tree,
+    so two runs give y equal bit for bit."""
+    p, x = _scan_case(cuda, (3, 150001), complex_, seed=6)
+    y1 = scan.first_order_scan(p, x)
+    y2 = scan.first_order_scan(p, x)
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_scan_kernel_in_a_cuda_graph(cuda, complex_):
+    """A captured scan replays right on new inputs: its workspace slots are
+    valid by an epoch kept on the device, not by a value from the host.
+    The warm-up makes the capture stream's workspace, so the graph holds
+    no zero-fill and every replay relies on the epoch.  After the first
+    replay an eager scan on that stream grows its workspace, and freed
+    memory of the old one's size is filled with ones: the graph keeps the
+    workspace it captured."""
+    p, x = _scan_case(cuda, (32, 19200), complex_, seed=7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scan.first_order_scan(p, x)               # warm-up, as torch asks
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y = scan.first_order_scan(p, x)
+    captured = scan._workspaces[(p.device.index, side.cuda_stream)][0]
+    for i, seed in enumerate((8, 9, 10)):
+        p_new, x_new = _scan_case(cuda, (32, 19200), complex_, seed=seed)
+        p.copy_(p_new)
+        x.copy_(x_new)
+        graph.replay()
+        want = scan.first_order_scan(p_new, x_new)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        if i == 0:
+            with torch.cuda.stream(side):
+                scan.first_order_scan(*_scan_case(cuda, (4, 1100000), False))
+                assert scan._workspaces[
+                    (p.device.index, side.cuda_stream)][0] is not captured
+                junk = [torch.ones(captured.numel(), dtype=torch.uint8,
+                                   device=cuda) for _ in range(8)]
+            side.synchronize()
+            del junk
 
 
 def test_scan_kernel_rejects(cuda):
