@@ -81,6 +81,21 @@ Phases (each prints one line; any failure exits non-zero):
                which takes the unchunked cascade entry; both float32
                paths against a float64 run on the card, SNR above 20 dB,
                the profiler's breakdown and the gaps between stages;
+ 18. pitch-fcnf0, pitch-crepe -- Pitch(out_format="f0") with FCNF0 and
+               CREPE tiny on 32 x 19,200 samples at its default network
+               precision (FCNF0 TF32, CREPE full fp32) and at the other:
+               full fp32 against the port on the CPU (rows 0-1), TF32
+               against full fp32 where TF32 is the default; cents against
+               the known f0 glide, times, a stage split, the conv stack's
+               rate against its peak and peak memory;
+ 19. world-fcnf0 -- [world] with FCNF0 (BASELINE.json configs[3] as
+               bench_all.py names it): the same launches and bars, row 0's
+               float64 CPU run analysing on the card's f0;
+ 20. straight -- STRAIGHT's envelope on [world-fcnf0]'s f0 against a
+               float64 CPU run of row 0, and the time of its band split;
+ 21. excite -- ExcitationGeneration with Gaussian noise: one threefry
+               launch, equal to the twin path within rtol 1e-6;
+ 22. istft  -- ISTFT(STFT(x)) at 400/80/512: SNR above 60 dB;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -96,6 +111,7 @@ import time
 import numpy as np
 
 F32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, flop/s
+TF32_CENTS = 10.0     # bar: a network's TF32 f0 against its full fp32 f0
 HBM_RATE = 3.35e12    # H100 SXM device memory, bytes/s
 
 
@@ -152,18 +168,24 @@ def profile_chain(torch, fn, calls: int = 3, stages: int = 0):
     """Device time per call of ``fn`` under torch.profiler: the busy time
     (the union of the device functions' intervals: kernels launched as
     programmatic dependents overlap), the eight costliest device functions
-    by summed duration, the number of device functions run per call, and
-    the gaps between the launches of the cascade kernel within each
-    cascade of ``stages`` stages (``stage_gaps``)."""
+    by summed duration, the number of device functions run per call, the
+    gaps between the launches of the cascade kernel within each cascade
+    of ``stages`` stages (``stage_gaps``), and the elapsed host time per
+    call of the same profiled calls, from the first call's start to the
+    card's end of the last.  The busy share is the busy time over that
+    elapsed time (``busy_share``): both come from one window.  Only the
+    card's activity is traced, not the host's operators, to keep the
+    profiler's own host cost in that window small."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     per_name = {}
     device = []
     for evt in prof.events():
@@ -173,7 +195,14 @@ def profile_chain(torch, fn, calls: int = 3, stages: int = 0):
             device.append(evt)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     return (union_us(device) / 1e3 / calls, [(k[:60], v) for k, v in top],
-            len(device) / calls, stage_gaps(device, stages))
+            len(device) / calls, stage_gaps(device, stages), wall_ms)
+
+
+def busy_share(busy_ms: float, wall_ms: float) -> str:
+    """The device-busy time of ``profile_chain`` against the elapsed time
+    of the same profiled calls, unclamped."""
+    return (f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms elapsed in "
+            f"the same profiled calls ({100 * busy_ms / wall_ms:.1f} %)")
 
 
 def kernel_device_ms(torch, fn, kernel: str, calls: int = 20):
@@ -454,8 +483,8 @@ def check_scan(torch, dev, card: str) -> dict:
     plain = cuda_ms(torch, lambda: scan.first_order_scan_plain(p, x), 20)
     pc, xc = cases[(torch.complex64, 19200)]
     ms_c = cuda_ms(torch, lambda: scan.first_order_scan(pc, xc), 200)
-    _, _, n_device, _ = profile_chain(
-        torch, lambda: scan.first_order_scan(p, x), 20)
+    n_device = profile_chain(
+        torch, lambda: scan.first_order_scan(p, x), 20)[2]
     check(n_device == 1, f"K5: a scan ran {n_device} device functions, "
           "expected 1")
     device_ms = kernel_device_ms(torch, lambda: scan.first_order_scan(p, x),
@@ -575,7 +604,8 @@ def run_lpc(torch, M: int, xs, card: str, tag: str) -> tuple[dict, float]:
         calls = cuda_call_ms(torch, lambda: chain(xs), 100)
         with twins():
             plain_ms = cuda_ms(torch, lambda: chain(xs), 3, warm=1)
-        busy_ms, top, n_device, _ = profile_chain(torch, lambda: chain(xs))
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: chain(xs))
         stages = {
             "analysis": lambda: analysis(xs),
             "inverse filter": lambda: inverse(xs, a),
@@ -594,9 +624,8 @@ def run_lpc(torch, M: int, xs, card: str, tag: str) -> tuple[dict, float]:
           f"calls), {B * T / (med * 1e-3):.1f} samples/s; twin path "
           f"{plain_ms:.3f} ms; stages (median of 20): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items())
-          + f"; device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / med:.1f} %) in {n_device:.0f} device "
-          f"functions per call; top device time: "
+          + f"; {busy_share(busy_ms, wall_ms)} in {n_device:.0f} "
+          f"device functions per call; top device time: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" | {card}",
           flush=True)
     return launches, med
@@ -1139,17 +1168,26 @@ def world_metrics(torch, xs, y):
 
 
 def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
-              full: bool) -> tuple[dict, list, list, list]:
-    """[world] / [world-tandem]: WorldVocoder on the card, float32.
-    Returns the launch counts and the recorded gather, overlap-add and
-    noise-draw call sites of one call."""
+              full: bool, pitch_algorithm: str = "yin",
+              f0_cents: float | None = None) -> tuple:
+    """[world] / [world-tandem] / [world-fcnf0]: WorldVocoder on the card,
+    float32.  Returns the launch counts, the recorded gather, overlap-add
+    and noise-draw call sites of one call, and its f0.
+
+    With YIN, row 0's float64 CPU run analyses on its own f0, held within
+    1e-4 relative.  FCNF0 runs in TF32 on the card: its f0 is
+    held against the CPU's (float32 network, full fp32) within
+    ``f0_cents`` cents, and the rest of the float64 chain analyses on the
+    card's f0, so D4C, CheapTrick and the synthesis meet [world]'s bars
+    on the same f0 and the same noise."""
     import diffsptk_tpu_torch as pt
     from diffsptk_tpu_torch import twins
     from diffsptk_tpu_torch.kernels import gather, ola, threefry
     from diffsptk_tpu_torch.ops import world_common as wc
 
     B, T = xs.shape
-    voc = pt.WorldVocoder(ap_algorithm=ap_algorithm, device="cuda",
+    voc = pt.WorldVocoder(pitch_algorithm=pitch_algorithm,
+                          ap_algorithm=ap_algorithm, device="cuda",
                           dtype=torch.float32)
     want = {"gather": {"d4c": 3 + 8, "tandem": 3 + 1}[ap_algorithm],
             "ola": 1,
@@ -1199,22 +1237,37 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
               f"{tag}: log-energy correlation below 0.8: {r_env.min()}")
         f64 = ""
         if full:
-            voc64 = pt.WorldVocoder(ap_algorithm=ap_algorithm, device="cpu",
+            voc64 = pt.WorldVocoder(pitch_algorithm=pitch_algorithm,
+                                    ap_algorithm=ap_algorithm, device="cpu",
                                     dtype=torch.float64)
+            x0 = xs[:1].double().cpu()
+            f0_0 = f0[:1].double().cpu()
             # the card's noise: JAX's float64 stream draws other numbers
             # than its float32 one (other bits make each uniform)
             undo = tape.replay(voc64.synth)
-            f0_64, ap_64, sp_64 = voc64.analyze(xs[:1].double().cpu())
-            y64 = voc64.synthesize(f0_64, ap_64, sp_64, out_length=T)
+            if pitch_algorithm == "yin":
+                f0_64, ap_64, sp_64 = voc64.analyze(x0)
+                f0_syn = f0_64
+            else:
+                f0_64 = voc64.pitch(x0)
+                ap_64, sp_64 = voc64.ap(x0, f0_0), voc64.spec(x0, f0_0)
+                f0_syn = f0_0
+            y64 = voc64.synthesize(f0_syn, ap_64, sp_64, out_length=T)
             undo()
-            f0_0 = f0[:1].double().cpu()
             both = (f0_0 > 0) & (f0_64 > 0)
             same_vuv = float(((f0_0 > 0) == (f0_64 > 0)).double().mean())
             err_f0 = float(((f0_0 - f0_64).abs() / f0_64.clamp(min=1))[both]
                            .max())
-            check(same_vuv >= 0.98 and err_f0 <= 1e-4,
+            if f0_cents is None:
+                f0_ok, f0_bar = err_f0 <= 1e-4, "tol 1e-4 relative"
+            else:
+                cents = float(cents_diff(f0_0, f0_64)[both].abs().max())
+                f0_ok = cents <= f0_cents
+                f0_bar = (f"{cents:.3f} cents, tol {f0_cents} cents; ap, sp "
+                          f"and y on the card's f0")
+            check(same_vuv >= 0.98 and f0_ok,
                   f"{tag}: f0 of row 0 against float64: voicing agrees on "
-                  f"{same_vuv:.3f}, relative f0 error {err_f0}")
+                  f"{same_vuv:.3f}, relative f0 error {err_f0} ({f0_bar})")
             d_ap = (ap[:1].double().cpu() - ap_64).abs()
             # D4C's smoothing keeps a float64-exact running sum, so float32
             # lands near float64 (a float32 running sum moved ap by 0.8).
@@ -1229,7 +1282,7 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
                                     y64.numpy().ravel())[0, 1])
             f64 = (f"; row 0 against CPU float64 on the same noise: voicing "
                    f"agrees on {same_vuv:.4f} of frames, f0 where both "
-                   f"voiced {err_f0:.3e} (tol 1e-4 relative), sp "
+                   f"voiced {err_f0:.3e} ({f0_bar}), sp "
                    f"{d_sp:.3e} of each frame's max, ap max "
                    f"{float(d_ap.max()):.3e} (tol 1e-3), p95 "
                    f"{float(d_ap.quantile(0.95)):.3e}, correlation "
@@ -1244,12 +1297,12 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
     p90 = float(np.percentile(calls, 90))
     prof = ""
     if full:
-        busy_ms, top, n_device, _ = profile_chain(
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
             torch, lambda: voc.analysis_synthesis(xs))
         noise_ms = kernel_device_ms(
             torch, lambda: voc.analysis_synthesis(xs), "threefry", calls=3)[0]
-        prof = (f"; device busy {busy_ms:.3f} ms ({100 * busy_ms / med:.1f} "
-                f"%) in {n_device:.0f} device functions per call; noise "
+        prof = (f"; {busy_share(busy_ms, wall_ms)} in {n_device:.0f} "
+                f"device functions per call; noise "
                 f"draws (threefry, {launches['threefry']} launches) "
                 f"{noise_ms:.4f} ms of device time per call; top device "
                 f"time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
@@ -1263,7 +1316,7 @@ def run_world(torch, xs, card: str, ap_algorithm: str, tag: str,
           f"{B * T / (med * 1e-3):.1f} samples/s; twin path {plain_ms:.3f} "
           f"ms" + prof + f" | {card}", flush=True)
     noise = [("flat", c) for c in flat] + [("slot", c) for c in slots]
-    return launches, gather_sites, ola_sites, noise
+    return launches, gather_sites, ola_sites, noise, f0
 
 
 def world_grad(torch, xs, card: str) -> None:
@@ -1289,6 +1342,319 @@ def world_grad(torch, xs, card: str) -> None:
     print(f"[world-grad] B=4 T=12800: gather launches {counts[0]}, "
           f"overlap-add launches {counts[1]} (forward 11 + 1, backward 1 + "
           f"11), finite, max|dL/dx| {gmax:.4e} | {card}", flush=True)
+
+
+def synth_f0(B: int, T: int) -> np.ndarray:
+    """The f0 glide (Hz per sample) of each row of ``synth_speech``."""
+    rows = []
+    for b in range(B):
+        rng = np.random.default_rng(1000 + b)
+        rows.append(np.linspace(rng.uniform(90, 140), rng.uniform(180, 260),
+                                T))
+    return np.stack(rows)
+
+
+def cents_diff(a, b):
+    """1200 log2(a / b), elementwise (meaningful where both are voiced)."""
+    return 1200 * (a.clamp(min=1e-9) / b.clamp(min=1e-9)).log2()
+
+
+def conv_flops(algo: str, model: str = "tiny") -> float:
+    """Multiply-adds x 2 of one frame through a pitch network's conv stack
+    and head (CREPE's classifier), from its layer plan."""
+    from diffsptk_tpu_torch.ops import pitch_nn as nn_
+
+    macs = 0
+    if algo == "fcnf0":
+        L, k = 993, nn_._FCNF0_KERNEL
+        for ci, co, _ln, pool in nn_._FCNF0_BLOCKS:
+            L = L - k + 1
+            macs += co * ci * k * L
+            L = L // pool[1] if pool else L
+        macs += nn_.PENN_PITCH_BINS * 512 * 4
+    else:
+        cap = nn_._CREPE_CAPACITY[model]
+        L = nn_.CREPE_WINDOW_SIZE
+        for ci, co, k, st, pad in zip(cap["in_channels"],
+                                      cap["out_channels"],
+                                      nn_._CREPE_KERNELS,
+                                      nn_._CREPE_STRIDES, nn_._CREPE_PADS):
+            L = (L + sum(pad) - k) // st + 1
+            macs += co * ci * k * L
+            L //= 2
+        macs += nn_.CREPE_PITCH_BINS * cap["in_features"]
+    return 2.0 * macs
+
+
+def run_pitch(torch, xs, card: str, algo: str, kw: dict, tag: str) -> dict:
+    """[pitch-fcnf0] / [pitch-crepe]: Pitch(out_format="f0") on the card,
+    float32, its network at its default precision (the main path) and at
+    the other one.  The full fp32 run is held against the port on the CPU
+    (rows 0-1); where the default is TF32, the TF32 run is held against
+    the full one.  Times, the stage split by CUDA events, the conv
+    stack's rate against its peak, and peak memory."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.core import full_precision
+    from diffsptk_tpu_torch.ops import pitch_nn as nn_
+
+    B, T = xs.shape
+
+    def make(device):
+        return pt.Pitch(80, 16000, algorithm=algo, out_format="f0",
+                        device=device, dtype=torch.float32, **kw)
+
+    op = make("cuda")                            # the main path
+    ext = op.extractor
+    default = ext.PRECISION
+    other = "full" if default == "tf32" else "tf32"
+
+    def fwd(f, prec):
+        if algo == "fcnf0":
+            return nn_.fcnf0_forward(ext.params, f, precision=prec)
+        return nn_.crepe_forward(ext.params, f, ext.model, precision=prec)
+
+    @full_precision
+    def f0_at(prec):
+        """The extractor's f0 with its network at ``prec``, as
+        ``Pitch.forward`` runs it."""
+        frames = ext.frames(xs)
+        out = nn_.run_network(lambda f: fwd(f, prec),
+                              frames.reshape(-1, 1024))
+        out = out.reshape(*frames.shape[:-1], -1)
+        return ext.decode(out) if algo == "fcnf0" else ext.decode(out, xs)
+
+    rows = 2
+    with torch.no_grad():
+        op(xs)                                   # libraries, plans
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        f0_main = op(xs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        f0_same, f0_other = f0_at(default), f0_at(other)
+        same = (bool(torch.equal(f0_same > 0, f0_main > 0))
+                and float((f0_same - f0_main).abs().max()) <= 1e-6
+                * float(f0_main.abs().max()))
+        check(same, f"{tag}: the network's forward at {default} does not "
+              f"give Pitch's f0")
+        f0, f0_full = ((f0_main, f0_other) if default == "tf32"
+                       else (f0_other, f0_main))
+        f0_cpu = make("cpu")(xs[:rows].cpu())
+        N = T // 80 + 1
+        check(tuple(f0_main.shape) == (B, N)
+              and bool(torch.isfinite(f0_main).all()),
+              f"{tag}: f0 is not finite or has the wrong shape")
+        a = f0_full[:rows].cpu()
+        both = (a > 0) & (f0_cpu > 0)
+        vuv_cpu = bool(torch.equal(a > 0, f0_cpu > 0))
+        err_cpu = float(((a - f0_cpu).abs() / f0_cpu.clamp(min=1))[both]
+                        .max()) if bool(both.any()) else 0.0
+        check(vuv_cpu and err_cpu <= 1e-4,
+              f"{tag}: full fp32 on the card against the CPU: voicing equal "
+              f"{vuv_cpu}, relative f0 error {err_cpu} (tol 1e-4)")
+        agree = float(((f0 > 0) == (f0_full > 0)).double().mean())
+        both = (f0 > 0) & (f0_full > 0)
+        c = cents_diff(f0, f0_full)[both].abs()
+        c_max = float(c.max()) if c.numel() else 0.0
+        c_med = float(c.median()) if c.numel() else 0.0
+        n_far = int((c > TF32_CENTS).sum())
+        if default == "tf32":
+            check(agree >= 0.99 and c_max <= TF32_CENTS,
+                  f"{tag}: TF32 against full fp32: voicing agrees on "
+                  f"{agree}, max {c_max} cents (tol {TF32_CENTS})")
+            tf32_bar = f"bars 0.99 and {TF32_CENTS} cents"
+        else:
+            tf32_bar = "for information: the default is full fp32"
+        truth = torch.as_tensor(synth_f0(B, T)[:, np.minimum(
+            np.arange(N) * 80, T - 1)], device=f0.device).float()
+
+        def err_cents(f):
+            e = cents_diff(f, truth)[f > 0].abs()
+            return float(e.median()), float(e.quantile(0.9))
+
+        true_tf32, true_full = err_cents(f0), err_cents(f0_full)
+        voiced = f0_main > 0
+
+        calls = cuda_call_ms(torch, lambda: op(xs), 20)
+        calls_other = cuda_call_ms(torch, lambda: f0_at(other), 10)
+        med, p90 = float(np.median(calls)), float(np.percentile(calls, 90))
+        med_other = float(np.median(calls_other))
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: op(xs))
+
+        # stage split by CUDA events, each stage on the call's own data
+        t_res = cuda_ms(torch, lambda: ext.resample(xs), 10)
+        if algo == "fcnf0":
+            out = ext._logits(xs)
+
+            def dec():
+                return ext.decode(out)
+        else:
+            out = ext.calc_prob(xs)
+
+            def dec():
+                return ext.decode(out, xs)
+        frames = ext.frames(xs).reshape(-1, 1024)
+        t_net = cuda_ms(torch, lambda: nn_.run_network(
+            lambda f: fwd(f, "tf32"), frames), 5)
+        t_net_full = cuda_ms(torch, lambda: nn_.run_network(
+            lambda f: fwd(f, "full"), frames), 3)
+        t_dec = cuda_ms(torch, dec, 5)
+        dec_name = "argmax decode"
+        if algo == "crepe":
+            probs = out * ext.bin_mask
+            t_vit = cuda_ms(torch, lambda: nn_.viterbi_decode(
+                probs, ext.transition), 3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nn_.viterbi_decode(probs, ext.transition)
+            vit_host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            vit_dev = kernel_device_ms(torch, lambda: nn_.viterbi_decode(
+                probs, ext.transition), "", calls=3)[1]
+            dec_name = (f"decode (Viterbi {t_vit:.3f} ms per call, device "
+                        f"busy {vit_dev:.3f} ms, host enqueue "
+                        f"{vit_host:.3f} ms; weighted cents, filters, "
+                        f"loudness)")
+    flops = conv_flops(algo, kw.get("model", "tiny")) * frames.shape[0]
+    rest = med - t_res - (t_net if default == "tf32" else t_net_full) - t_dec
+    net_sr = 8000 if algo == "fcnf0" else 16000
+    voiced_share = float(voiced.double().mean())
+    print(f"[{tag}] B={B} T={T} ({frames.shape[0]} frames of 1024 at "
+          f"{net_sr} Hz): f0 finite, {voiced_share:.4f} voiced; full fp32 "
+          f"on the card against the CPU (rows 0-{rows - 1}): voicing equal, "
+          f"f0 {err_cpu:.3e} (tol 1e-4 relative); TF32 against full fp32: "
+          f"voicing agrees on {agree:.4f} of frames, f0 median {c_med:.4f} "
+          f"max {c_max:.4f} cents, {n_far} frames beyond {TF32_CENTS} "
+          f"({tf32_bar}); cents error against synth_speech's f0 glide, "
+          f"median and p90: TF32 {true_tf32[0]:.2f} and {true_tf32[1]:.2f}, "
+          f"full fp32 {true_full[0]:.2f} and {true_full[1]:.2f} (for "
+          f"information); the default, {default}: median {med:.3f} ms per "
+          f"call (p90 {p90:.3f}, {len(calls)} calls), "
+          f"{busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions; the other precision: median "
+          f"{med_other:.3f} ms ({len(calls_other)} calls); "
+          f"stage split (CUDA events): resample {t_res:.3f} ms, "
+          f"conv stack TF32 {t_net:.3f} ms, full fp32 {t_net_full:.3f} ms, "
+          f"{dec_name} {t_dec:.3f} ms, rest {rest:.3f} ms; conv stack "
+          f"{flops / 1e12:.4f} TFLOP: TF32 {flops / t_net / 1e9:.2f} "
+          f"TFLOP/s, {100 * flops / t_net / 1e9 / 495:.2f} % of the 495 "
+          f"TFLOP/s TF32 peak; full fp32 {flops / t_net_full / 1e9:.2f} "
+          f"TFLOP/s, {100 * flops / t_net_full / 1e9 / 67:.2f} % of the 67 "
+          f"TFLOP/s fp32 peak; peak memory of one call {peak / 2**30:.3f} "
+          f"GiB above {base / 2**30:.3f} GiB held; top device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" | {card}",
+          flush=True)
+    return dict(ms=med, other_ms=med_other, net_ms=t_net,
+                net_full_ms=t_net_full)
+
+
+def run_straight(torch, xs, f0, card: str) -> None:
+    """[straight]: STRAIGHT's envelope on the card, float32, on the f0 of
+    [world-fcnf0], against a float64 CPU run of row 0; the time of its
+    band-split filters alone."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.ops import straight
+
+    B, T = xs.shape
+    kw = dict(frame_period=80, sample_rate=16000, fft_length=2048,
+              algorithm="straight")
+    op = pt.PitchAdaptiveSpectralAnalysis(**kw, device="cuda",
+                                          dtype=torch.float32)
+    with torch.no_grad():
+        sp = op(xs, f0)
+        sp64 = pt.PitchAdaptiveSpectralAnalysis(
+            **kw, device="cpu", dtype=torch.float64)(
+                xs[:1].double().cpu(), f0[:1].double().cpu())
+        check(tuple(sp.shape) == (B, f0.shape[-1], 1025)
+              and bool(torch.isfinite(sp).all()),
+              "[straight]: envelope is not finite or has the wrong shape")
+        err = float(((sp[:1].double().cpu() - sp64).abs()
+                     / sp64.amax(-1, True)).max())
+        check(err <= 1e-3, f"[straight]: row 0 is {err} of each frame's "
+              f"max from float64 (tol 1e-3)")
+        calls = cuda_call_ms(torch, lambda: op(xs, f0), 5, warm=1)
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: op(xs, f0), calls=1)
+
+        def band_split():                # the three highpass cascades
+            return [straight._sosfilt(sos, xs) for sos in op.extractor.sos]
+
+        iir_ms = float(np.median(cuda_call_ms(torch, band_split, 5, warm=1)))
+        iir_busy, _, iir_n, _, iir_wall = profile_chain(
+            torch, band_split, calls=1)
+    med = float(np.median(calls))
+    print(f"[straight] B={B} T={T} fft 2048: row 0 against CPU float64 "
+          f"{err:.3e} of each frame's max (tol 1e-3); median {med:.3f} ms "
+          f"per call ({len(calls)} calls), {busy_share(busy_ms, wall_ms)} "
+          f"in {n_device:.0f} device functions per call; of which the band "
+          f"split (9 biquad sections through the plain blocked recurrence) "
+          f"{iir_ms:.3f} ms, {busy_share(iir_busy, iir_wall)} in "
+          f"{iir_n:.0f} device functions; top "
+          f"device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:4])
+          + f" | {card}", flush=True)
+
+
+def run_excite(torch, f0, card: str) -> None:
+    """[excite]: ExcitationGeneration(80), Gaussian unvoiced noise, on the
+    card in float32, on the f0 of [world-fcnf0] with frames 100-139 of
+    every row set unvoiced so the noise shows: one threefry launch per
+    call, and the output equal to the twin path's within the draws' bar
+    (rtol 1e-6)."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import threefry
+
+    f0 = f0.clone()
+    f0[:, 100:140] = 0
+    p = torch.where(f0 > 0, 16000 / f0.clamp(min=1e-3), torch.zeros_like(f0))
+    op = pt.ExcitationGeneration(80, device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        before = threefry.launches
+        e = op(p)
+        torch.cuda.synchronize()
+        n = threefry.launches - before
+        check(n == 1, f"[excite]: threefry launched {n} times, expected 1")
+        with twins():
+            e_p = op(p)
+        check(bool(torch.isfinite(e).all()), "[excite]: not finite")
+        torch.testing.assert_close(e, e_p, rtol=1e-6, atol=0)
+        noise = e[:, 100 * 80:140 * 80]
+        calls = cuda_call_ms(torch, lambda: op(p), 20)
+        with twins():
+            plain_ms = cuda_ms(torch, lambda: op(p), 5)
+    med = float(np.median(calls))
+    print(f"[excite] B={p.shape[0]} N={p.shape[1]} (T={e.shape[-1]}): "
+          f"threefry launches 1 per call; kernel path against twin path "
+          f"within rtol 1e-6 (max {float((e - e_p).abs().max()):.3e}); "
+          f"unvoiced noise std {float(noise.std()):.4f}; median {med:.4f} "
+          f"ms per call (p90 {float(np.percentile(calls, 90)):.4f}), twin "
+          f"path {plain_ms:.4f} ms | {card}", flush=True)
+
+
+def run_istft(torch, xs, card: str) -> None:
+    """[istft]: ISTFT(STFT(x)) at 400/80/512 on the card, float32."""
+    import diffsptk_tpu_torch as pt
+
+    B, T = xs.shape
+    kw = dict(frame_length=400, frame_period=80, fft_length=512,
+              device="cuda", dtype=torch.float32)
+    stft = pt.STFT(**kw, out_format="complex")
+    istft = pt.ISTFT(**kw)
+    with torch.no_grad():
+        S = stft(xs)
+        y = istft(S, out_length=T)
+        err = (y - xs)[..., :-80]                # the tail lacks WOLA cover
+        snr = float(10 * torch.log10((xs ** 2).sum() / (err ** 2).sum()))
+        check(tuple(y.shape) == (B, T) and snr > 60,
+              f"[istft]: round-trip SNR {snr:.2f} dB (bar 60)")
+        both = cuda_call_ms(torch, lambda: istft(stft(xs), out_length=T), 20)
+        inv = cuda_call_ms(torch, lambda: istft(S, out_length=T), 20)
+    print(f"[istft] B={B} T={T} 400/80/512: round-trip SNR {snr:.2f} dB "
+          f"(bar 60); STFT + ISTFT median {float(np.median(both)):.4f} ms, "
+          f"ISTFT alone {float(np.median(inv)):.4f} ms | {card}", flush=True)
 
 
 def run_chain48(torch, card: str) -> dict:
@@ -1359,7 +1725,7 @@ def run_chain48(torch, card: str) -> dict:
     med = float(np.median(calls))
     p90 = float(np.percentile(calls, 90))
     with torch.no_grad():
-        busy_ms, top, n_device, gaps = profile_chain(
+        busy_ms, top, n_device, gaps, wall_ms = profile_chain(
             torch, lambda: voc.analysis_synthesis(xs), stages=S)
     print(f"[chain48] B={B} T={T} (48 kHz, P=240, Taylor order {S}): "
           f"launches {launches}; "
@@ -1370,8 +1736,8 @@ def run_chain48(torch, card: str) -> dict:
           f"(bar 20 dB), float64 {snr_64:.2f} dB; median {med:.3f} ms per "
           f"call (p90 {p90:.3f}, {len(calls)} calls), "
           f"{B * T / (med * 1e-3):.1f} samples/s; twin path {plain_ms:.3f} "
-          f"ms; device busy {busy_ms:.3f} ms ({100 * busy_ms / med:.1f} %) "
-          f"in {n_device:.0f} device functions per call; {gaps}; top device "
+          f"ms; {busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions per call; {gaps}; top device "
           f"time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top)
           + f" | {card}", flush=True)
     return launches
@@ -1616,7 +1982,7 @@ def main() -> int:
             mlsa.taylor_cascade(*im_args, *geo)
         host_us = (time.perf_counter() - t_host) / 10 * 1e6
         torch.cuda.synchronize()
-        im_busy, _, _, im_gaps = profile_chain(
+        im_busy, _, _, im_gaps, im_wall = profile_chain(
             torch, lambda: mlsa.taylor_cascade(*im_args, *geo), calls=5,
             stages=S)
         print(f"[imlsa] B={Bv} N={mc.shape[-2]}: max sum|c| {c_sum:.3f}, "
@@ -1625,8 +1991,8 @@ def main() -> int:
               f"{rms_k:.3e}, twin max {max_p:.3e} rms {rms_p:.3e} (rms "
               f"ratio {rms_k / rms_p:.3f}, tol 2); cascade call median "
               f"{im_ms:.4f} ms (p90 {float(np.percentile(im_calls, 90)):.4f}"
-              f", {len(im_calls)} calls), device busy {im_busy:.4f} ms "
-              f"({100 * im_busy / im_ms:.1f} %); host enqueue "
+              f", {len(im_calls)} calls), {busy_share(im_busy, im_wall)}; "
+              f"host enqueue "
               f"{host_us:.1f} us per call, {host_us / S:.2f} us per stage; "
               f"{im_gaps} | {card}", flush=True)
         snr = float(10 * torch.log10(
@@ -1639,7 +2005,7 @@ def main() -> int:
             chain_plain_ms = cuda_ms(
                 torch, lambda: voc.analysis_synthesis(xs), 2, warm=1)
     rate = Bv * T / (chain_ms * 1e-3)
-    busy_ms, top, n_device, gaps = profile_chain(
+    busy_ms, top, n_device, gaps, wall_ms = profile_chain(
         torch, lambda: voc.analysis_synthesis(xs), stages=S)
     for key, count in launches.items():
         report[key]["launches"] = count
@@ -1652,8 +2018,8 @@ def main() -> int:
           f"{len(calls)} calls), {rate:.1f} samples/s; twin path "
           f"{chain_plain_ms:.3f} ms | {card}", flush=True)
 
-    print(f"[profile] device busy {busy_ms:.3f} ms of {chain_ms:.3f} ms per "
-          f"call ({100 * busy_ms / chain_ms:.1f} %) in {n_device:.0f} device "
+    print(f"[profile] {busy_share(busy_ms, wall_ms)} per call, against "
+          f"the chain's median {chain_ms:.3f} ms, in {n_device:.0f} device "
           f"functions per call; {gaps}; top device time: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" | {card}",
           flush=True)
@@ -1705,7 +2071,7 @@ def main() -> int:
 
     # 14. and 13. the WORLD chain, then its kernels at its call sites
     xw = torch.as_tensor(synth_speech(32, 19200), device=dev)
-    launches_w, gather_sites, ola_sites, noise_sites = run_world(
+    launches_w, gather_sites, ola_sites, noise_sites, _ = run_world(
         torch, xw, card, "d4c", "world", full=True)
     report["gather"] = check_gather(torch, gather_sites, card,
                                     gather_ptxas)
@@ -1723,6 +2089,16 @@ def main() -> int:
     launches48 = run_chain48(torch, card)
     report["mlsa_cascade_unchunked"]["launches"] = launches48[
         "mlsa_cascade_unchunked"]
+
+    # 18.-22. the neural pitch trackers, WORLD with FCNF0 (configs[3] as
+    #     bench_all.py names it), STRAIGHT, the excitation, the inverse STFT
+    run_pitch(torch, xw, card, "fcnf0", {}, "pitch-fcnf0")
+    run_pitch(torch, xw, card, "crepe", dict(model="tiny"), "pitch-crepe")
+    *_, f0_w = run_world(torch, xw, card, "d4c", "world-fcnf0", full=True,
+                         pitch_algorithm="fcnf0", f0_cents=TF32_CENTS)
+    run_straight(torch, xw, f0_w, card)
+    run_excite(torch, f0_w, card)
+    run_istft(torch, xw, card)
 
     kernels = []
     meta = {

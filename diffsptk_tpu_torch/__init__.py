@@ -13,7 +13,11 @@ from .models.mcep_vocoder import MelCepstralVocoder
 from .models.world_vocoder import WorldVocoder
 from .ops.acorr import Autocorrelation
 from .ops.ap import Aperiodicity
-from .ops.fftr import RealValuedFastFourierTransform
+from .ops.excite import ExcitationGeneration
+from .ops.fftr import (
+    RealValuedFastFourierTransform,
+    RealValuedInverseFastFourierTransform,
+)
 from .ops.frame import Frame
 from .ops.freqt import FrequencyTransform
 from .ops.gnorm import (
@@ -36,13 +40,20 @@ from .ops.parcor import (
 )
 from .ops.poledf import AllPoleDigitalFilter
 from .ops.spec import Spectrum
-from .ops.stft import ShortTimeFourierTransform
+from .ops.stft import (
+    InverseShortTimeFourierTransform,
+    ShortTimeFourierTransform,
+)
+from .ops.unframe import Unframe
 from .ops.window import Window
 from .ops.world_synth import WorldSynthesis
 from .ops.zerodf import AllZeroDigitalFilter
+from .signals import mseq, mseq_like
 from .utils.carry import load_jax_params
 
 STFT = ShortTimeFourierTransform
+ISTFT = InverseShortTimeFourierTransform
+IFFTR = RealValuedInverseFastFourierTransform
 LPC = LinearPredictiveCodingAnalysis
 MLSA = PseudoMGLSADigitalFilter
 IMLSA = PseudoInverseMGLSADigitalFilter
@@ -57,11 +68,15 @@ __all__ = [
     "BaseOp",
     "CoefficientsFrequencyTransform",
     "Design",
+    "ExcitationGeneration",
     "Frame",
     "FrequencyTransform",
     "GeneralizedCepstrumGainNormalization",
     "GeneralizedCepstrumInverseGainNormalization",
+    "IFFTR",
     "IMLSA",
+    "ISTFT",
+    "InverseShortTimeFourierTransform",
     "LPC",
     "LevinsonDurbin",
     "LinearPredictiveCodingAnalysis",
@@ -74,13 +89,17 @@ __all__ = [
     "PseudoInverseMGLSADigitalFilter",
     "PseudoMGLSADigitalFilter",
     "RealValuedFastFourierTransform",
+    "RealValuedInverseFastFourierTransform",
     "ReverseLevinsonDurbin",
     "STFT",
     "ShortTimeFourierTransform",
     "Spectrum",
+    "Unframe",
     "Window",
     "WorldSynthesis",
     "WorldVocoder",
     "load_jax_params",
+    "mseq",
+    "mseq_like",
     "twins",
 ]

@@ -1,12 +1,15 @@
 """Pitch extraction by YIN (counterpart of ``diffsptk_tpu/ops/pitch.py``).
 
-A batched YIN tracker: FFT-based difference function, cumulative-mean
-normalization, threshold dip picking with parabolic refinement.  The
-neural trackers (``algorithm="crepe"`` / ``"fcnf0"``) are not ported yet
-and raise ``NotImplementedError``.
+* ``algorithm="yin"`` (default): a batched YIN tracker -- FFT-based
+  difference function, cumulative-mean normalization, threshold dip
+  picking with parabolic refinement;
+* ``algorithm="crepe"`` / ``"fcnf0"``: the CREPE and FCNF0++ networks
+  (``pitch_nn.py``), with the checkpoints bundled with the JAX package
+  unless ``weights=`` names others.
 
 Output formats: pitch (period in samples), f0, log-f0 (unvoiced ->
--1e10), prob.  The output carries no gradient, as in the JAX package.
+-1e10), prob, embed (crepe only).  The output carries no gradient, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core import full_precision, resolve_device
+from ..core import child, full_precision, place
+from .pitch_nn import PitchExtractionByCREPE, PitchExtractionByFCNF0
 
 UNVOICED_SYMBOL = 0.0
 
@@ -126,10 +130,13 @@ class PitchExtractionByYIN:
 
 
 class Pitch(nn.Module):
-    """Waveform (B?, T) -> pitch/f0/log-f0 (B?, N) or prob (B?, N, C).
+    """Waveform (B?, T) -> pitch/f0/log-f0 (B?, N) or prob/embed
+    (B?, N, C).
 
-    ``device`` and ``dtype`` are accepted for the port's op signature;
-    the tracker holds no tensors, so its output follows the input's.
+    The neural trackers hold tensors (their weights, kept float32, and
+    their decoding tables, in ``dtype``) on ``device``: the card unless
+    ``device="cpu"``; ``device=None`` raises without a card.  YIN holds
+    none, so its output follows the input's.
     """
 
     def __init__(self, frame_period: int, sample_rate: int,
@@ -140,13 +147,17 @@ class Pitch(nn.Module):
             raise ValueError("frame_period must be positive.")
         if sample_rate < 8000:
             raise ValueError("sample_rate must be at least 8000 Hz.")
-        resolve_device(device)
         if algorithm == "yin":
             self.extractor = PitchExtractionByYIN(frame_period, sample_rate,
                                                   **kwargs)
-        elif algorithm in ("crepe", "fcnf0"):
-            raise NotImplementedError(
-                f"algorithm {algorithm} is not ported yet (pitch_nn)")
+        elif algorithm == "crepe":
+            self.extractor = child(PitchExtractionByCREPE,
+                                   frame_period=frame_period,
+                                   sample_rate=sample_rate, **kwargs)
+        elif algorithm == "fcnf0":
+            self.extractor = child(PitchExtractionByFCNF0,
+                                   frame_period=frame_period,
+                                   sample_rate=sample_rate, **kwargs)
         else:
             raise ValueError(f"algorithm {algorithm} is not supported.")
 
@@ -169,6 +180,7 @@ class Pitch(nn.Module):
             self.convert = self.extractor.calc_embed
         else:
             raise ValueError(f"out_format {out_format} is not supported.")
+        place(self, device, dtype)
 
     @full_precision
     def forward(self, x: torch.Tensor) -> torch.Tensor:

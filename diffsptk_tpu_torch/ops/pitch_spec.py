@@ -3,8 +3,8 @@
 
 F0-adaptive Hann window -> power spectrum -> DC correction -> linear
 smoothing -> liftering with compensation.  Gradients flow through the
-waveform but not F0.  ``algorithm="straight"`` is not ported yet and
-raises ``NotImplementedError``.
+waveform but not F0.  ``algorithm="straight"`` takes STRAIGHT
+(``straight.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from torch import nn
 
 from ..core import child, full_precision, place
 from .spec import Spectrum
+from .straight import SpectrumExtractionBySTRAIGHT
 from .world_common import (
     TAU,
     dc_correction,
@@ -134,8 +135,9 @@ class PitchAdaptiveSpectralAnalysis(nn.Module):
                 SpectrumExtractionByCheapTrick, frame_period=frame_period,
                 sample_rate=sample_rate, fft_length=fft_length, **kwargs)
         elif algorithm == "straight":
-            raise NotImplementedError(
-                "algorithm straight is not ported yet")
+            self.extractor = child(
+                SpectrumExtractionBySTRAIGHT, frame_period=frame_period,
+                sample_rate=sample_rate, fft_length=fft_length, **kwargs)
         else:
             raise ValueError(f"algorithm {algorithm} is not supported.")
 

@@ -1,6 +1,7 @@
-"""STFT (counterpart of ``diffsptk_tpu/ops/stft.py``, forward only).
+"""STFT and its inverse (counterpart of ``diffsptk_tpu/ops/stft.py``).
 
-STFT is literally ``spec(window(frame(x)))``, composed at design time.
+STFT is literally ``spec(window(frame(x)))``, composed at design time;
+ISTFT is ``unframe(ifftr(y))``, a weighted overlap-add.
 """
 
 from __future__ import annotations
@@ -8,9 +9,13 @@ from __future__ import annotations
 import torch
 
 from ..core import BaseOp, Design, child, filter_values
-from .fftr import RealValuedFastFourierTransform
+from .fftr import (
+    RealValuedFastFourierTransform,
+    RealValuedInverseFastFourierTransform,
+)
 from .frame import Frame
 from .spec import Spectrum
+from .unframe import Unframe
 from .window import Window
 
 LEARNABLES = ("basis", "window")
@@ -74,3 +79,36 @@ class ShortTimeFourierTransform(BaseOp):
     @staticmethod
     def _forward(x: torch.Tensor, *, frame, window, spec) -> torch.Tensor:
         return spec(window(frame(x)))
+
+
+class InverseShortTimeFourierTransform(BaseOp):
+    """(..., T/P, L/2+1) complex -> (..., T) waveform via WOLA."""
+
+    def __init__(self, frame_length: int, frame_period: int, fft_length: int,
+                 *, center: bool = True, window: str = "blackman",
+                 norm: str = "power", symmetric: bool = True,
+                 learnable: bool | list = False, dtype=None,
+                 device=None) -> None:
+        super().__init__()
+        self._setup(self._design(**filter_values(locals())), dtype=dtype,
+                    device=device)
+
+    @staticmethod
+    def _design(frame_length: int, frame_period: int, fft_length: int,
+                center: bool = True, window: str = "blackman",
+                norm: str = "power", symmetric: bool = True,
+                learnable: bool | list = False) -> Design:
+        learn = _normalize_learnable(learnable)
+        ifftr = child(RealValuedInverseFastFourierTransform,
+                      fft_length=fft_length, out_length=frame_length,
+                      learnable="basis" in learn)
+        unframe = child(Unframe, frame_length=frame_length,
+                        frame_period=frame_period, center=center,
+                        window=window, norm=norm, symmetric=symmetric,
+                        learnable="window" in learn)
+        return Design(layers={"ifftr": ifftr, "unframe": unframe})
+
+    @staticmethod
+    def _forward(y: torch.Tensor, out_length: int | None = None, *, ifftr,
+                 unframe) -> torch.Tensor:
+        return unframe(ifftr(y), out_length)

@@ -725,3 +725,112 @@ def test_mcep_below_the_jax_batch_gate_takes_the_kernel(cuda):
         torch.as_tensor(X))
     torch.testing.assert_close(got.double().cpu(), want, rtol=2e-4,
                                atol=2e-4)
+
+
+@pytest.mark.parametrize("algo,kw", [("fcnf0", {}),
+                                     ("crepe", dict(model="tiny"))])
+def test_neural_pitch_on_the_card_matches_the_cpu(cuda, algo, kw):
+    """Full fp32 on the card against the port on the CPU in float32:
+    voicing equal, f0 within 1e-4 relative; where TF32 is the network's
+    precision (FCNF0), its f0 is within chip_smoke.TF32_CENTS of full
+    fp32, voicing equal on 99 % of frames."""
+    from chip_smoke import TF32_CENTS, cents_diff
+    from diffsptk_tpu_torch.core import full_precision
+    from diffsptk_tpu_torch.ops import pitch_nn as nn_
+    x = torch.as_tensor(synth_speech(3, 12800))
+    make = lambda dev: pt.Pitch(  # noqa: E731
+        80, 16000, algorithm=algo, out_format="f0", device=dev,
+        dtype=torch.float32, **kw).extractor
+    ext = make(cuda)
+    xc = x.to(cuda)
+
+    @full_precision
+    def f0_at(precision):
+        """The extractor's f0 with its network at ``precision``, as
+        ``Pitch.forward`` runs it."""
+        frames = ext.frames(xc)
+        if algo == "fcnf0":
+            out = nn_.fcnf0_forward(ext.params, frames.reshape(-1, 1024),
+                                    precision=precision)
+            return ext.decode(out.reshape(*frames.shape[:-1], -1)).cpu()
+        out = nn_.crepe_forward(ext.params, frames.reshape(-1, 1024),
+                                ext.model, precision=precision)
+        return ext.decode(out.reshape(*frames.shape[:-1], -1), xc).cpu()
+
+    with torch.no_grad():
+        want = make("cpu").calc_pitch(x)
+        full, tf32 = f0_at("full"), f0_at("tf32")
+        main = full_precision(ext.calc_pitch)(xc).cpu()
+    assert torch.equal(main, tf32 if ext.PRECISION == "tf32" else full)
+    assert torch.equal(full > 0, want > 0)
+    voiced = want > 0
+    torch.testing.assert_close(full[voiced], want[voiced], rtol=1e-4,
+                               atol=0)
+    assert torch.isfinite(tf32).all()
+    if ext.PRECISION != "tf32":
+        return                                    # full fp32 by default
+    assert float(((tf32 > 0) == (full > 0)).double().mean()) >= 0.99
+    both = (tf32 > 0) & (full > 0)
+    assert float(cents_diff(tf32, full)[both].abs().max()) <= TF32_CENTS
+
+
+def test_neural_pitch_weights_stay_float32_on_the_card(cuda):
+    op = pt.Pitch(80, 16000, algorithm="fcnf0", device=cuda,
+                  dtype=torch.float64)
+    ext = op.extractor
+    assert all(w.dtype == torch.float32 and w.is_cuda
+               for w in ext.params.values())
+    assert ext.bin_mask.dtype == torch.float64
+
+
+def test_excitation_noise_takes_the_threefry_kernel(cuda):
+    """The Gaussian unvoiced region draws through the kernel (one launch);
+    the output equals the twin path's within the draws' bar."""
+    p = torch.full((4, 200), 100.0, device=cuda)
+    p[:, 50:120] = 0
+    op = pt.ExcitationGeneration(80, device=cuda, dtype=torch.float32)
+    before = threefry.launches
+    e = op(p)
+    assert threefry.launches == before + 1
+    with pt.twins():
+        e_p = op(p)
+    assert threefry.launches == before + 1
+    torch.testing.assert_close(e, e_p, rtol=1e-6, atol=0)
+    assert float(e[:, 60 * 80:110 * 80].std()) > 0.5
+
+
+def test_world_fcnf0_makes_no_host_read(cuda):
+    """WorldVocoder with FCNF0: the pitch stage (the network and its
+    decode) and the synthesis enqueue without a synchronising call."""
+    x = torch.as_tensor(synth_speech(2, 4000), device=cuda)
+    voc = pt.WorldVocoder(pitch_algorithm="fcnf0", ap_algorithm="d4c",
+                          device=cuda, dtype=torch.float32)
+    with torch.no_grad():
+        f0, ap, sp = voc.analyze(x)
+        voc.synthesize(f0, ap, sp)          # first call: plans, libraries
+        torch.cuda.synchronize()
+        before = (ola.launches, threefry.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            f0_again = voc.pitch(x)
+            y = voc.synthesize(f0, ap, sp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert (ola.launches, threefry.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert torch.equal(f0_again, f0) and torch.isfinite(y).all()
+
+
+def test_crepe_viterbi_makes_no_host_read(cuda):
+    op = pt.Pitch(80, 16000, algorithm="crepe", model="tiny",
+                  out_format="f0", device=cuda, dtype=torch.float32)
+    x = torch.as_tensor(synth_speech(2, 4000), device=cuda)
+    with torch.no_grad():
+        want = op(x)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = op(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)

@@ -1,12 +1,14 @@
 """The measurement helpers of chip_smoke.py that read the cascade kernel's
 runs: the grouped-conv1d reference stage, the profiler's busy union and
-stage gaps, and ptxas' register summary, on the CPU."""
+stage gaps, and ptxas' register summary; and the pitch networks' FLOP
+count; on the CPU."""
 
 from __future__ import annotations
 
 import types
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -109,3 +111,37 @@ def test_rate_reports_unmeasured_device_time():
     assert chip_smoke.device_rate(3.35e9, 0.0, 1.0) == "not measured"
     assert chip_smoke.device_rate(3.35e9, 2.0, 1.0) == (
         "2.0000 ms, 1.675 TB/s, 50.0 % of the bound")
+
+
+def test_busy_share_reads_one_window_unclamped():
+    """The share is the busy time over the same calls' elapsed time, as
+    measured: never clamped to 100 %."""
+    assert chip_smoke.busy_share(2.0, 4.0) == (
+        "device busy 2.000 ms of 4.000 ms elapsed in the same profiled "
+        "calls (50.0 %)")
+    assert chip_smoke.busy_share(4.1, 4.0).endswith("(102.5 %)")
+
+
+@pytest.mark.parametrize("algo", ["fcnf0", "crepe"])
+def test_conv_flops_counts_every_layer(monkeypatch, algo):
+    """conv_flops' layer plan equals the multiply-adds of the convs (and
+    CREPE's classifier) that one frame really runs through the port."""
+    from diffsptk_tpu_torch.ops import pitch_nn as nn_
+
+    macs = []
+    conv = nn_.conv
+
+    def counted(h, w, b=None, stride=1, precision="full"):
+        y = conv(h, w, b, stride=stride, precision=precision)
+        macs.append(w.shape[0] * w.shape[1] * w.shape[2] * y.shape[-1])
+        return y
+
+    monkeypatch.setattr(nn_, "conv", counted)
+    x = torch.randn(1, 1024)
+    if algo == "fcnf0":
+        nn_.fcnf0_forward(nn_.init_fcnf0_params(), x)
+    else:
+        nn_.crepe_forward(nn_.init_crepe_params("tiny"), x, "tiny")
+        macs.append(nn_.CREPE_PITCH_BINS * 256)      # the classifier
+    assert chip_smoke.conv_flops(algo, "tiny") == 2.0 * sum(macs)
+

@@ -172,9 +172,14 @@ def test_yin_steps():
 
 
 def test_pitch_not_ported_and_checks():
+    """The neural trackers are ported (tests/test_torch_pitch_nn.py); their
+    checks raise as the JAX package's do."""
     for algorithm in ("crepe", "fcnf0"):
-        with pytest.raises(NotImplementedError):
-            pt.Pitch(FP, SR, algorithm=algorithm, **F64)
+        with pytest.raises(ValueError, match="f_min and f_max"):
+            pt.Pitch(FP, SR, algorithm=algorithm, f_min=500.0, f_max=100.0,
+                     **F64)
+    with pytest.raises(ValueError, match="tiny"):
+        pt.Pitch(FP, SR, algorithm="crepe", model="huge", **F64)
     with pytest.raises(NotImplementedError):
         pt.Pitch(FP, SR, out_format="embed", **F64)(torch.as_tensor(X))
     with pytest.raises(ValueError):
@@ -196,7 +201,9 @@ def test_cheaptrick(ref, out_format):
                                                   torch.as_tensor(ref["f0"]))
     assert got.shape == (2, ref["f0"].shape[-1], FFT // 2 + 1)
     _close(got, want)
-    with pytest.raises(NotImplementedError):
+    # STRAIGHT is ported (tests/test_torch_straight.py); its 80 ms frame
+    # needs an FFT of at least 1,280 points at 16 kHz, as in the JAX package
+    with pytest.raises(ValueError, match="1280"):
         pt.PitchAdaptiveSpectralAnalysis(FP, SR, FFT, algorithm="straight",
                                          **F64)
 

@@ -97,10 +97,10 @@ def main() -> int:
                     f0, ap, sp, out_length=xs.shape[-1])),
                 ("world", lambda: voc.analysis_synthesis(xs))):
             med = float(np.median(smoke.cuda_call_ms(torch, fn, 20)))
-            busy = smoke.profile_chain(torch, fn)[0]
+            prof = smoke.profile_chain(torch, fn)
             print(f"[ab] {label} {name}: median {med:.3f} ms per call, "
-                  f"device busy {busy:.3f} ms ({100 * busy / med:.1f} %) "
-                  f"| {card}", flush=True)
+                  f"{smoke.busy_share(prof[0], prof[4])} | {card}",
+                  flush=True)
     return 0
 
 

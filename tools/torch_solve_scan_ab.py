@@ -217,10 +217,10 @@ def main() -> int:
             chain, _ = smoke.lpc_chain(torch, M, "cuda", torch.float32)
             med = float(np.median(smoke.cuda_call_ms(
                 torch, lambda: chain(xs), 20)))
-            busy = smoke.profile_chain(torch, lambda: chain(xs))[0]
+            prof = smoke.profile_chain(torch, lambda: chain(xs))
             print(f"[ab] {label} [{tag}] M={M}: median {med:.3f} ms per "
-                  f"call, device busy {busy:.3f} ms ({100 * busy / med:.1f} "
-                  f"%) | {card}", flush=True)
+                  f"call, {smoke.busy_share(prof[0], prof[4])} | {card}",
+                  flush=True)
     return 0
 
 
