@@ -96,6 +96,31 @@ Phases (each prints one line; any failure exits non-zero):
  21. excite -- ExcitationGeneration with Gaussian noise: one threefry
                launch, equal to the twin path within rtol 1e-6;
  22. istft  -- ISTFT(STFT(x)) at 400/80/512: SNR above 60 dB;
+ 23. battery -- bench_all.py's filterbank battery (BASELINE.json
+               configs[4]: CQT -> ICQT, MDCT -> IMDCT, PQMF -> IPQMF,
+               summed) on 8 x 76,800 samples: row 0 of each transform
+               against the port's float64 run on the CPU (CQT and ICQT
+               within 1e-3 of max, the others 1e-4), the IMDCT(MDCT(x))
+               round trip above 90 dB and IPQMF(PQMF(x)) above 30 dB on the
+               interior, the median and p90 of 50 calls, the busy share, a
+               stage split and peak memory;
+ 24. battery-long -- the same on 8 x 28,800,000 samples (half an hour of
+               16 kHz audio a channel, [battery]'s signal tiled): finite
+               outputs, the round trips' bars over the whole length, the
+               median of 5 calls, peak memory and busy share;
+ 25. mglsadf-modes -- MelCepstralVocoder with cascade="stages" (and
+               "folded", the plain matmul-plan form beside it), and in
+               mode "single-stage" and "freq-domain", on 32 x 19,200
+               samples: Newton 10 launches, row 0 of the timed call, all
+               19,200 samples, within 1e-2 of max|y| of float64 on the
+               CPU, the median of 20 calls, busy share and peak memory;
+ 26. pade   -- MelCepstralVocoder(mode="pade-approx") on 32 x 3,200
+               samples: the scan kernel 10 launches a call, all complex64,
+               each of the ten scans over every row against its twin on
+               its own inputs (1e-4), the output against the twin path
+               (1e-2 of max|y|), row 0 within 1e-2 of float64 on the CPU,
+               the per-sample loop's host time and the scan's device
+               time;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -113,6 +138,11 @@ import numpy as np
 F32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, flop/s
 TF32_CENTS = 10.0     # bar: a network's TF32 f0 against its full fp32 f0
 HBM_RATE = 3.35e12    # H100 SXM device memory, bytes/s
+# [battery-long]: one card's half of an hour of 8-channel 16 kHz audio
+BATTERY_LONG_T = 28_800_000
+# profile_chain's windows so far, and those it profiled a second time
+# because the profiler recorded no device activity in the first
+PROFILED = {"windows": 0, "again": 0}
 
 
 def check(cond, msg: str) -> None:
@@ -175,34 +205,53 @@ def profile_chain(torch, fn, calls: int = 3, stages: int = 0):
     card's end of the last.  The busy share is the busy time over that
     elapsed time (``busy_share``): both come from one window.  Only the
     card's activity is traced, not the host's operators, to keep the
-    profiler's own host cost in that window small."""
+    profiler's own host cost in that window small.  A window in which the
+    profiler recorded no device activity at all is profiled once more,
+    with a note: the profiler once dropped a short window's records while
+    the card ran the kernels (a scan window of [K5]).  ``PROFILED``
+    counts the windows and the second attempts; ``busy_share`` prints
+    both."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    PROFILED["windows"] += 1
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        device = [evt for evt in prof.events()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA]
+        if device or attempt:
+            break
+        PROFILED["again"] += 1
+        print(f"[profile] the profiler recorded no device activity in "
+              f"{calls} profiled calls; profiling them once more "
+              f"({profiled_again()})", flush=True)
     per_name = {}
-    device = []
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[evt.name] = (per_name.get(evt.name, 0.0)
-                                  + evt.device_time / 1e3 / calls)
-            device.append(evt)
+    for evt in device:
+        per_name[evt.name] = (per_name.get(evt.name, 0.0)
+                              + evt.device_time / 1e3 / calls)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     return (union_us(device) / 1e3 / calls, [(k[:60], v) for k, v in top],
             len(device) / calls, stage_gaps(device, stages), wall_ms)
 
 
+def profiled_again() -> str:
+    """How many of ``profile_chain``'s windows so far it profiled twice."""
+    return (f"{PROFILED['again']} of {PROFILED['windows']} profiler windows "
+            f"so far profiled twice")
+
+
 def busy_share(busy_ms: float, wall_ms: float) -> str:
     """The device-busy time of ``profile_chain`` against the elapsed time
-    of the same profiled calls, unclamped."""
+    of the same profiled calls, unclamped, and ``profiled_again``."""
     return (f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms elapsed in "
-            f"the same profiled calls ({100 * busy_ms / wall_ms:.1f} %)")
+            f"the same profiled calls ({100 * busy_ms / wall_ms:.1f} %; "
+            f"{profiled_again()})")
 
 
 def kernel_device_ms(torch, fn, kernel: str, calls: int = 20):
@@ -501,7 +550,8 @@ def check_scan(torch, dev, card: str) -> dict:
           f"{-(-long_T // scan.TILE)} tiles); two runs equal bit for bit; "
           f"backward {err_grad:.3e} (tol 1e-4); at T={T} float32: tile "
           f"{scan.TILE} samples, {R * -(-T // scan.TILE)} blocks, "
-          f"{n_device:.0f} device function per scan; kernel {ms:.4f} ms "
+          f"{n_device:.0f} device function per scan ({profiled_again()}); "
+          f"kernel {ms:.4f} ms "
           f"per call, device {device_rate(3 * R * T * 4.0, device_ms, bound)}"
           f"; twin {plain:.3f} ms, bound {bound:.5f} ms ({by}); complex64: "
           f"kernel {ms_c:.4f} ms per call, device "
@@ -1743,6 +1793,413 @@ def run_chain48(torch, card: str) -> dict:
     return launches
 
 
+def snr_db(torch, ref, y) -> float:
+    """10 log10(sum ref^2 / sum (y - ref)^2), in float64."""
+    ref, y = ref.double(), y.double()
+    return float(10 * torch.log10((ref ** 2).sum() / ((y - ref) ** 2).sum()))
+
+
+def rel_err(torch, got, want) -> float:
+    """max|got - want| over max|want|, want computed in float64."""
+    got = got.to(device=want.device, dtype=want.dtype)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+class Battery:
+    """bench_all.py's filterbank battery (BASELINE.json configs[4]):
+    CQT -> ICQT, MDCT -> IMDCT and PQMF -> IPQMF, summed."""
+
+    def __init__(self, device, dtype):
+        import diffsptk_tpu_torch as pt
+
+        kw = dict(device=device, dtype=dtype)
+        self.cqt = pt.CQT(64, 16000, n_bin=24, **kw)
+        self.icqt = pt.ICQT(64, 16000, n_bin=24, **kw)
+        self.mdct, self.imdct = pt.MDCT(256, **kw), pt.IMDCT(256, **kw)
+        self.pqmf, self.ipqmf = pt.PQMF(4, 47, **kw), pt.IPQMF(4, 47, **kw)
+
+    def parts(self, x):
+        T = x.shape[-1]
+        c = self.cqt(x)
+        m = self.mdct(x)
+        s = self.pqmf(x)
+        return dict(cqt=c, icqt=self.icqt(c, out_length=T), mdct=m,
+                    imdct=self.imdct(m, out_length=T), pqmf=s,
+                    ipqmf=self.ipqmf(s)[..., 0, :T])
+
+    def __call__(self, x):
+        T = x.shape[-1]
+        y1 = self.icqt(self.cqt(x), out_length=T)
+        y2 = self.imdct(self.mdct(x), out_length=T)
+        y3 = self.ipqmf(self.pqmf(x))[..., 0, :T]
+        return y1 + y2 + y3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def battery_stages(torch, bat, x, iters: int = 10) -> dict:
+    """Each stage of one battery call on the inputs it sees in the call:
+    its CUDA-event ms (mean of ``iters``) and its bound (``bound_ms``: the
+    stage's inputs read once and outputs written once, and its
+    operations: a real FFT of L points 2.5 L log2 L, a complex
+    multiply-add 8, a real one 2).
+    The stages: resampling (the CQT's early downsample and halving, the
+    ICQT's upsampling), the CQT's STFTs and FFT-basis matmuls, the ICQT's
+    time bases overlap-added (one transposed convolution an octave, the
+    basis matmul and the unframe in one), the MDCT and IMDCT, and the
+    PQMF and IPQMF convolutions.  Returns {stage: (ms, bound_ms, by)}."""
+    from diffsptk_tpu_torch.ops.cqt import basis_overlap_add
+
+    cqt, icqt = bat.cqt, bat.icqt
+    C, T = x.shape
+    keys = ("resample", "stft", "basis matmuls", "time-basis overlap-add",
+            "mdct+imdct", "pqmf convs")
+    ms = dict.fromkeys(keys, 0.0)
+    work = {k: [0, 0.0] for k in keys}
+
+    def stage(key, fn, ins, flops):
+        out = fn()
+        ms[key] += cuda_ms(torch, fn, iters, warm=1)
+        work[key][0] += nbytes(*ins, out)
+        work[key][1] += flops(out)
+        return out
+
+    def resample(rs, xin, scale=1.0):
+        return stage("resample", lambda: rs(xin) * scale, [xin, rs.kernel],
+                     lambda out: 2 * out.numel() * rs.kernel.numel()
+                     / rs.new_freq)
+
+    xo = resample(cqt.early_downsample, x, cqt.downsample_scale)
+    for i, stft in enumerate(cqt.transforms):
+        L = stft.frame.frame_length
+        X = stage("stft", lambda: stft(xo), [xo],
+                  lambda out: 2.5 * out.shape[-2] * C * L * np.log2(L))
+        W = getattr(cqt, f"fft_basis_{i}")
+        stage("basis matmuls", lambda: torch.matmul(X, W), [X, W],
+              lambda out: 8 * out.numel() * W.shape[0])
+        if i < len(cqt.halves):
+            xo = resample(cqt.halves[i], xo, cqt.halve_scales[i])
+    c = cqt(x)
+    for i, sl in enumerate(icqt.slices):
+        A = torch.cat([c[..., sl].real, c[..., sl].imag], dim=-1)
+        tb = getattr(icqt, f"time_basis_{i}")
+        v = stage("time-basis overlap-add",
+                  lambda: basis_overlap_add(A, tb, icqt.hops[i]), [A, tb],
+                  lambda out: 2 * A.numel() * tb.shape[-1])
+        rs = icqt.resamplers[i]
+        if rs.orig_freq != rs.new_freq:
+            resample(rs, v)
+    n_frames = bat.mdct(x).shape[-2]
+    stage("mdct+imdct", lambda: bat.imdct(bat.mdct(x), out_length=T), [x],
+          lambda out: 4 * C * n_frames * 256 * 128)
+    s = stage("pqmf convs", lambda: bat.pqmf(x), [x, bat.pqmf.filters],
+              lambda out: 2 * out.numel() * bat.pqmf.filters.shape[-1])
+    stage("pqmf convs", lambda: bat.ipqmf(s), [s, bat.ipqmf.filters],
+          lambda out: 2 * out.numel() * bat.ipqmf.filters[0].numel())
+    return {k: (ms[k], *bound_ms(*work[k])) for k in keys}
+
+
+def run_battery(torch, xs, card: str) -> None:
+    """[battery]: bench_all.py's battery (BASELINE.json configs[4]) on 8
+    channels x 76,800 samples at 16 kHz, float32 on the card: row 0 of
+    each transform against the port's float64 run on the CPU (CQT and
+    ICQT within 1e-3 of max|.|, MDCT, IMDCT, PQMF and IPQMF within 1e-4),
+    the IMDCT(MDCT(x)) round trip above 90 dB and the IPQMF(PQMF(x)) one
+    above 30 dB on the interior; the median and p90 of 50 calls, the busy
+    share, a stage split and peak memory."""
+    from diffsptk_tpu_torch.kernels import (gather, mlsa, newton, ola,
+                                            scan, solve, threefry)
+
+    counters = (newton, mlsa, solve, scan, gather, ola, threefry)
+    C, T = xs.shape
+    bat = Battery("cuda", torch.float32)
+    bat64 = Battery("cpu", torch.float64)
+    with torch.no_grad():
+        for mod in counters:
+            mod.launches = 0
+        y = bat(xs)
+        torch.cuda.synchronize()
+        n_kernel = sum(mod.launches for mod in counters)
+        check(tuple(y.shape) == (C, T) and bool(torch.isfinite(y).all()),
+              "[battery] output is not finite or has the wrong shape")
+        parts = bat.parts(xs)
+        x64 = xs[:1].double().cpu()
+        parts64 = bat64.parts(x64)
+        errs = {k: rel_err(torch, parts[k][:1], parts64[k])
+                for k in parts}
+        errs["battery"] = rel_err(torch, y[:1], bat64(x64))
+        bars = dict(cqt=1e-3, icqt=1e-3, battery=1e-3, mdct=1e-4,
+                    imdct=1e-4, pqmf=1e-4, ipqmf=1e-4)
+        for k, bar in bars.items():
+            check(errs[k] <= bar, f"[battery] {k} row 0 against float64 "
+                  f"on the CPU: {errs[k]:.3e} of max (bar {bar})")
+        snr_mdct = snr_db(torch, xs, parts["imdct"])
+        snr_pqmf = snr_db(torch, xs[:, 50:-50], parts["ipqmf"][:, 50:-50])
+        check(snr_mdct > 90.0 and snr_pqmf > 30.0,
+              f"[battery] round trips: IMDCT(MDCT(x)) {snr_mdct:.2f} dB "
+              f"(bar 90), IPQMF(PQMF(x)) {snr_pqmf:.2f} dB (bar 30)")
+        del parts
+        calls = cuda_call_ms(torch, lambda: bat(xs), 50)
+        stages = battery_stages(torch, bat, xs)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bat(xs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: bat(xs))
+    med = float(np.median(calls))
+    print(f"[battery] C={C} T={T} (16 kHz; CQT(64, 16000, n_bin=24) -> ICQT, "
+          f"MDCT(256) -> IMDCT, PQMF(4, 47) -> IPQMF, summed): hand-kernel "
+          f"launches {n_kernel} (none on this path); row 0 against float64 "
+          f"on the CPU, of max|.|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bars CQT, ICQT, battery 1e-3, the others 1e-4); "
+          f"IMDCT(MDCT(x)) {snr_mdct:.2f} dB (bar 90), IPQMF(PQMF(x)) "
+          f"{snr_pqmf:.2f} dB on the interior (bar 30); median {med:.3f} "
+          f"ms per call (p90 {float(np.percentile(calls, 90)):.3f}, "
+          f"{len(calls)} calls), {C * T / (med * 1e-3):.1f} samples/s; "
+          f"{busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions per call; stages (ms each alone, and its bound): "
+          + ", ".join(f"{k} {v[0]:.3f} (bound {v[1]:.4f}, {v[2]})"
+                      for k, v in stages.items())
+          + f", sum {sum(v[0] for v in stages.values()):.3f}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} above "
+          f"the {base / 2 ** 30:.3f} held before the call); top device "
+          f"time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top)
+          + f" | {card}", flush=True)
+
+
+def run_battery_long(torch, xs, card: str, T: int) -> None:
+    """[battery-long]: the battery on 8 channels x T samples, [battery]'s
+    signal tiled along time (as bench_all.py tiles its speech): every
+    output finite, and the round trips held to [battery]'s bars over the
+    whole length; the median of 5 calls, peak memory and busy share."""
+    C, T0 = xs.shape
+    x = xs.repeat(1, -(-T // T0))[:, :T].contiguous()
+    bat = Battery("cuda", torch.float32)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = bat(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check(tuple(y.shape) == (C, T) and bool(torch.isfinite(y).all()),
+              "[battery-long] output is not finite or has the wrong shape")
+        del y
+        c = bat.cqt(x)
+        check(bool(torch.isfinite(c).all()), "[battery-long] CQT not finite")
+        y1 = bat.icqt(c, out_length=T)
+        del c
+        check(bool(torch.isfinite(y1).all()),
+              "[battery-long] ICQT not finite")
+        del y1
+        m = bat.mdct(x)
+        check(bool(torch.isfinite(m).all()), "[battery-long] MDCT not finite")
+        y2 = bat.imdct(m, out_length=T)
+        del m
+        snr_mdct = snr_db(torch, x, y2)
+        del y2
+        s = bat.pqmf(x)
+        check(bool(torch.isfinite(s).all()), "[battery-long] PQMF not finite")
+        y3 = bat.ipqmf(s)[..., 0, :T]
+        del s
+        snr_pqmf = snr_db(torch, x[:, 50:-50], y3[:, 50:-50])
+        del y3
+        check(snr_mdct > 90.0 and snr_pqmf > 30.0,
+              f"[battery-long] round trips: IMDCT(MDCT(x)) {snr_mdct:.2f} dB "
+              f"(bar 90), IPQMF(PQMF(x)) {snr_pqmf:.2f} dB (bar 30)")
+        calls = cuda_call_ms(torch, lambda: bat(x), 5, warm=1)
+        busy_ms, _, n_device, _, wall_ms = profile_chain(
+            torch, lambda: bat(x), calls=1)
+        stages = battery_stages(torch, bat, x, iters=2)
+    med = float(np.median(calls))
+    print(f"[battery-long] C={C} T={T} ({T / 16000 / 60:.1f} min at 16 kHz "
+          f"a channel, {C * T * 4 / 1e9:.3f} GB of float32 input; "
+          f"[battery]'s signal tiled): every output finite; IMDCT(MDCT(x)) "
+          f"{snr_mdct:.2f} dB (bar 90), IPQMF(PQMF(x)) {snr_pqmf:.2f} dB on "
+          f"the interior (bar 30); median {med:.3f} ms per call "
+          f"({len(calls)} calls: " + ", ".join(f"{v:.3f}" for v in calls)
+          + f"), {C * T / (med * 1e-3):.1f} samples/s; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} above "
+          f"the {base / 2 ** 30:.3f} held before the call); "
+          f"{busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions per call; stages (ms each alone, and its bound): "
+          + ", ".join(f"{k} {v[0]:.3f} (bound {v[1]:.4f}, {v[2]})"
+                      for k, v in stages.items())
+          + f" | {card}", flush=True)
+
+
+def run_mglsadf_mode(torch, xs, card: str, mode: str, **kw) -> None:
+    """[mglsadf-modes]: MelCepstralVocoder(mode=...).analysis_synthesis on
+    the flagship's 32 x 19,200 samples, float32 on the card: the Newton
+    kernel 10 times a call, row 0 of that call, all 19,200 samples, within
+    1e-2 of max|y| of the port's float64 run on the CPU; the median of 20
+    calls, busy share, peak memory and the SNR against x."""
+    from diffsptk_tpu_torch import MelCepstralVocoder
+    from diffsptk_tpu_torch.kernels import mlsa, newton, scan
+
+    B, T = xs.shape
+    label = mode + "".join(f", {k}={v!r}" for k, v in kw.items())
+    voc = MelCepstralVocoder(mode=mode, **kw, device="cuda",
+                             dtype=torch.float32)
+    with torch.no_grad():
+        newton.launches = mlsa.launches = scan.launches = 0
+        y = voc.analysis_synthesis(xs)
+        torch.cuda.synchronize()
+        launches = {"newton": newton.launches, "mlsa_cascade": mlsa.launches,
+                    "scan": scan.launches}
+        check(launches == {"newton": 10, "mlsa_cascade": 0, "scan": 0},
+              f"[mglsadf-modes] {label}: launches {launches}, expected "
+              f"Newton 10 and no other")
+        check(tuple(y.shape) == (B, T) and bool(torch.isfinite(y).all()),
+              f"[mglsadf-modes] {label}: not finite or the wrong shape")
+        y64 = MelCepstralVocoder(mode=mode, **kw, device="cpu",
+                                 dtype=torch.float64).analysis_synthesis(
+            xs[:1].double().cpu())
+        err = rel_err(torch, y[:1], y64)
+        check(err <= 1e-2, f"[mglsadf-modes] {label}: row 0 against float64 "
+              f"on the CPU {err:.3e} of max|y| (bar 1e-2)")
+        snr = snr_db(torch, xs, y)
+        calls = cuda_call_ms(torch, lambda: voc.analysis_synthesis(xs), 20)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        voc.analysis_synthesis(xs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: voc.analysis_synthesis(xs))
+    med = float(np.median(calls))
+    print(f"[mglsadf-modes] {label}: B={B} T={T}: launches {launches}; row 0 "
+          f"of that call, all {T} samples, against float64 on the CPU "
+          f"{err:.3e} of max|y| (bar 1e-2); SNR "
+          f"against x {snr:.2f} dB; median {med:.3f} ms per call (p90 "
+          f"{float(np.percentile(calls, 90)):.3f}, {len(calls)} calls), "
+          f"{B * T / (med * 1e-3):.1f} samples/s; "
+          f"{busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions per call; peak memory {peak / 2 ** 30:.3f} GiB "
+          f"({(peak - base) / 2 ** 30:.3f} above the call's start); top "
+          f"device time: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:4])
+          + f" | {card}", flush=True)
+
+
+def run_pade(torch, xs, card: str) -> None:
+    """[pade]: MelCepstralVocoder(mode="pade-approx") on 32 x 3,200
+    samples, float32 on the card (the length cut for the order-199
+    sections' per-sample loop): the scan kernel 10 times a call, each on
+    complex64, Newton 10; each of those ten scans, every row, against the
+    plain twin on its own inputs at [K5]'s complex64 tolerance; the whole
+    output against the call with every kernel's twin (``twins``) at the
+    flagship's tolerance; row 0 within 1e-2 of max|y| of the port's
+    float64 run on the CPU; the median of 3 calls, the busy share, the
+    loop's host time and the scan kernel's device time a call."""
+    from diffsptk_tpu_torch import MelCepstralVocoder, twins
+    from diffsptk_tpu_torch.kernels import mlsa, newton, recurrence, scan
+
+    B, T = xs.shape
+    voc = MelCepstralVocoder(mode="pade-approx", device="cuda",
+                             dtype=torch.float32)
+    loop_s, loop_work = [], [0, 0.0]
+    loop = recurrence._scan_sample_wise_lpc
+
+    def timed_loop(x, a, *args):
+        t0 = time.perf_counter()
+        out = loop(x, a, *args)
+        loop_s.append(time.perf_counter() - t0)
+        # x and a read once, y written once; a complex multiply-add is 8
+        loop_work[0] += nbytes(x, a, out)
+        loop_work[1] += 8 * a.numel()
+        return out
+
+    with torch.no_grad():
+        sink = []
+        restore = record_calls(scan, "first_order_scan", sink)
+        newton.launches = mlsa.launches = scan.launches = 0
+        try:
+            y = voc.analysis_synthesis(xs)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = {"newton": newton.launches, "mlsa_cascade": mlsa.launches,
+                    "scan": scan.launches}
+        dtypes = sorted({str(args[1].dtype) for args, _ in sink})
+        check(launches == {"newton": 10, "mlsa_cascade": 0, "scan": 10}
+              and dtypes == ["torch.complex64"],
+              f"[pade] launches {launches} on {dtypes}, expected the scan "
+              f"10 times on complex64 and Newton 10")
+        shapes = sorted({tuple(args[1].shape) for args, _ in sink})
+        scan_err = 0.0
+        for args, kwargs in sink:
+            y_k = scan.first_order_scan(*args, **kwargs)
+            y_p = scan.first_order_scan_plain(*args, **kwargs)
+            e = float((y_k - y_p).abs().max())
+            scan_err = max(scan_err, e)
+            check(bool(torch.allclose(y_k, y_p, rtol=1e-4, atol=1e-4)),
+                  f"[pade] a scan of {tuple(y_k.shape)} disagrees with its "
+                  f"twin: {e:.3e} (tol 1e-4)")
+        del sink, y_k, y_p
+        with twins():
+            y_twin = voc.analysis_synthesis(xs)
+        tol_y = 1e-2                  # the flagship's bar for two paths
+        twin_scale = float(y_twin.abs().max())
+        err_twin = float((y - y_twin).abs().max())
+        check(bool(torch.allclose(y, y_twin, rtol=0,
+                                  atol=tol_y * twin_scale)),
+              f"[pade] output disagrees with the twin path: {err_twin:.3e} "
+              f"(tol {tol_y} * {twin_scale:.3f})")
+        del y_twin
+        check(tuple(y.shape) == (B, T) and bool(torch.isfinite(y).all()),
+              "[pade] output is not finite or has the wrong shape")
+        x1 = xs[:1]
+        y64 = MelCepstralVocoder(mode="pade-approx", device="cpu",
+                                 dtype=torch.float64).analysis_synthesis(
+            x1.double().cpu())
+        err = rel_err(torch, y[:1], y64)
+        check(err <= 1e-2, f"[pade] row 0 against float64 on the CPU "
+              f"{err:.3e} of max|y| (bar 1e-2)")
+        snr = snr_db(torch, xs, y)
+        calls = cuda_call_ms(torch, lambda: voc.analysis_synthesis(xs), 3,
+                             warm=1)
+        recurrence._scan_sample_wise_lpc = timed_loop
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            voc.analysis_synthesis(xs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            recurrence._scan_sample_wise_lpc = loop
+        scan_dev, _ = kernel_device_ms(
+            torch, lambda: voc.analysis_synthesis(xs), "scan_kernel",
+            calls=1)
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: voc.analysis_synthesis(xs), calls=1)
+    med = float(np.median(calls))
+    loop_bound, loop_by = bound_ms(*loop_work)
+    print(f"[pade] B={B} T={T} (pade_order 5, cep_order_mlsa 199): launches "
+          f"{launches}, the scan on {dtypes} of {shapes}, each against its "
+          f"twin on its own inputs {scan_err:.3e} (tol 1e-4); |y kernel-"
+          f"twin| {err_twin:.3e} (tol {tol_y} * {twin_scale:.3f}); row 0 "
+          f"against float64 on the "
+          f"CPU {err:.3e} of max|y| (bar 1e-2); SNR against x {snr:.2f} dB; "
+          f"median {med:.3f} ms per call ({len(calls)} calls: "
+          + ", ".join(f"{v:.3f}" for v in calls)
+          + f"), {B * T / (med * 1e-3):.1f} samples/s; the order-199 "
+          f"sections' per-sample loop: {len(loop_s)} loops, host time "
+          f"{1e3 * sum(loop_s):.3f} ms of a {1e3 * wall:.3f} ms call, its "
+          f"bound {loop_bound:.4f} ms ({loop_by}); the scan kernel's "
+          f"device time {scan_dev:.4f} ms a call; "
+          f"{busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions per call; top device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:4])
+          + f" | {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2099,6 +2556,18 @@ def main() -> int:
     run_straight(torch, xw, f0_w, card)
     run_excite(torch, f0_w, card)
     run_istft(torch, xw, card)
+
+    # 23.-26. the filterbank battery (configs[4]) and the rest of MLSA
+    #     synthesis: the stages cascade, single-stage, freq-domain, Pade
+    xb = torch.as_tensor(synth_speech(8, 76800), device=dev)
+    run_battery(torch, xb, card)
+    run_battery_long(torch, xb, card, BATTERY_LONG_T)
+    del xb
+    run_mglsadf_mode(torch, xw, card, "multi-stage", cascade="stages")
+    run_mglsadf_mode(torch, xw, card, "multi-stage", cascade="folded")
+    run_mglsadf_mode(torch, xw, card, "single-stage")
+    run_mglsadf_mode(torch, xw, card, "freq-domain")
+    run_pade(torch, xw[:, :3200].contiguous(), card)
 
     kernels = []
     meta = {

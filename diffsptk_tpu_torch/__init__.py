@@ -13,6 +13,7 @@ from .models.mcep_vocoder import MelCepstralVocoder
 from .models.world_vocoder import WorldVocoder
 from .ops.acorr import Autocorrelation
 from .ops.ap import Aperiodicity
+from .ops.cqt import ConstantQTransform, InverseConstantQTransform
 from .ops.excite import ExcitationGeneration
 from .ops.fftr import (
     RealValuedFastFourierTransform,
@@ -26,8 +27,20 @@ from .ops.gnorm import (
 )
 from .ops.levdur import LevinsonDurbin, ReverseLevinsonDurbin
 from .ops.lpc import LinearPredictiveCodingAnalysis
+from .ops.mc2b import (
+    MelCepstrumToMLSADigitalFilterCoefficients,
+    MLSADigitalFilterCoefficientsToMelCepstrum,
+)
 from .ops.mcep import CoefficientsFrequencyTransform, MelCepstralAnalysis
+from .ops.mdct import (
+    HilbertTransform,
+    InverseModifiedDiscreteCosineTransform,
+    InverseModifiedDiscreteSineTransform,
+    ModifiedDiscreteCosineTransform,
+    ModifiedDiscreteSineTransform,
+)
 from .ops.mgc2mgc import MelGeneralizedCepstrumToMelGeneralizedCepstrum
+from .ops.mgc2sp import MelGeneralizedCepstrumToSpectrum
 from .ops.mglsadf import (
     PseudoInverseMGLSADigitalFilter,
     PseudoMGLSADigitalFilter,
@@ -39,6 +52,11 @@ from .ops.parcor import (
     AllZeroToAllPoleDigitalFilterCoefficients,
 )
 from .ops.poledf import AllPoleDigitalFilter
+from .ops.pqmf import (
+    FractionalOctaveBandAnalysis,
+    PseudoQuadratureMirrorFilterBankAnalysis,
+    PseudoQuadratureMirrorFilterBankSynthesis,
+)
 from .ops.spec import Spectrum
 from .ops.stft import (
     InverseShortTimeFourierTransform,
@@ -57,6 +75,14 @@ IFFTR = RealValuedInverseFastFourierTransform
 LPC = LinearPredictiveCodingAnalysis
 MLSA = PseudoMGLSADigitalFilter
 IMLSA = PseudoInverseMGLSADigitalFilter
+CQT = ConstantQTransform
+ICQT = InverseConstantQTransform
+MDCT = ModifiedDiscreteCosineTransform
+IMDCT = InverseModifiedDiscreteCosineTransform
+MDST = ModifiedDiscreteSineTransform
+IMDST = InverseModifiedDiscreteSineTransform
+PQMF = PseudoQuadratureMirrorFilterBankAnalysis
+IPQMF = PseudoQuadratureMirrorFilterBankSynthesis
 
 __all__ = [
     "AllPoleDigitalFilter",
@@ -66,28 +92,49 @@ __all__ = [
     "Aperiodicity",
     "Autocorrelation",
     "BaseOp",
+    "CQT",
     "CoefficientsFrequencyTransform",
+    "ConstantQTransform",
     "Design",
     "ExcitationGeneration",
+    "FractionalOctaveBandAnalysis",
     "Frame",
     "FrequencyTransform",
     "GeneralizedCepstrumGainNormalization",
     "GeneralizedCepstrumInverseGainNormalization",
+    "HilbertTransform",
+    "ICQT",
     "IFFTR",
+    "IMDCT",
+    "IMDST",
     "IMLSA",
+    "IPQMF",
     "ISTFT",
+    "InverseConstantQTransform",
+    "InverseModifiedDiscreteCosineTransform",
+    "InverseModifiedDiscreteSineTransform",
     "InverseShortTimeFourierTransform",
     "LPC",
     "LevinsonDurbin",
     "LinearPredictiveCodingAnalysis",
+    "MDCT",
+    "MDST",
     "MLSA",
+    "MLSADigitalFilterCoefficientsToMelCepstrum",
     "MelCepstralAnalysis",
     "MelCepstralVocoder",
+    "MelCepstrumToMLSADigitalFilterCoefficients",
     "MelGeneralizedCepstrumToMelGeneralizedCepstrum",
+    "MelGeneralizedCepstrumToSpectrum",
+    "ModifiedDiscreteCosineTransform",
+    "ModifiedDiscreteSineTransform",
+    "PQMF",
     "Pitch",
     "PitchAdaptiveSpectralAnalysis",
     "PseudoInverseMGLSADigitalFilter",
     "PseudoMGLSADigitalFilter",
+    "PseudoQuadratureMirrorFilterBankAnalysis",
+    "PseudoQuadratureMirrorFilterBankSynthesis",
     "RealValuedFastFourierTransform",
     "RealValuedInverseFastFourierTransform",
     "ReverseLevinsonDurbin",

@@ -21,7 +21,11 @@ threefry kernel's bits equal to its twin's and its normals within rtol 1e-6
 1e-4 of max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
 within 2e-5 (float32) and 1e-4 (complex64) of its twin, its backward
 within 1e-4 (the tolerances of tests/test_pallas_scan.py), and equal bit
-for bit to itself: run twice, and replayed in a CUDA graph.
+for bit to itself: run twice, and replayed in a CUDA graph.  The
+filterbanks (no kernel of their own) float32 on the card against the
+port's float64 on the CPU: CQT and ICQT within 1e-3 of max, the others
+1e-4; mc2b, b2mc, mgc2sp and Hilbert 1e-5, the all-zero filter's FFT
+path 1e-5; the vocoder's modes within the flagship's 1e-2 of max|y|.
 """
 
 from __future__ import annotations
@@ -834,3 +838,100 @@ def test_crepe_viterbi_makes_no_host_read(cuda):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got, want)
+
+
+def _rel(got, want):
+    got = got.detach().cpu().to(want.dtype)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("name,args,bar", [
+    ("CQT", (64, 16000), 1e-3), ("MDCT", (256,), 1e-4),
+    ("MDST", (64, "kbd"), 1e-4), ("PQMF", (4, 47), 1e-4),
+    ("FractionalOctaveBandAnalysis", (16000,), 1e-4)])
+def test_filterbanks_on_the_card_match_the_cpu(cuda, name, args, bar):
+    """Each analysis and its inverse, float32 on the card against the
+    port's float64 on the CPU, within ``bar`` of max|.|."""
+    x = torch.as_tensor(synth_speech(3, 9600))
+    kw = dict(n_bin=24) if name == "CQT" else {}
+    fwd = getattr(pt, name)(*args, **kw, device=cuda, dtype=torch.float32)
+    fwd64 = getattr(pt, name)(*args, **kw, device="cpu", dtype=torch.float64)
+    with torch.no_grad():
+        c, c64 = fwd(x.to(cuda)), fwd64(x.double())
+        assert c.device.type == cuda.type and _rel(c, c64) <= bar
+        if name == "FractionalOctaveBandAnalysis":
+            return
+        inv_name = "I" + name
+        inv = getattr(pt, inv_name)(*args, **kw, device=cuda,
+                                    dtype=torch.float32)
+        inv64 = getattr(pt, inv_name)(*args, **kw, device="cpu",
+                                      dtype=torch.float64)
+        if name == "PQMF":
+            y, y64 = inv(c), inv64(c64)
+        else:
+            y, y64 = inv(c, out_length=9600), inv64(c64, out_length=9600)
+        assert _rel(y, y64) <= bar
+
+
+def test_spectral_conversions_on_the_card_match_the_cpu(cuda):
+    mc = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (4, 30, 25)) * 0.2)
+    for op, kw in ((pt.MelCepstrumToMLSADigitalFilterCoefficients,
+                    dict(cep_order=24, alpha=0.42)),
+                   (pt.MLSADigitalFilterCoefficientsToMelCepstrum,
+                    dict(cep_order=24, alpha=0.42)),
+                   (pt.MelGeneralizedCepstrumToSpectrum,
+                    dict(cep_order=24, fft_length=512, alpha=0.42,
+                         out_format="complex")),
+                   (pt.HilbertTransform, dict(fft_length=25))):
+        got = op(**kw, device=cuda, dtype=torch.float32)(mc.float().to(cuda))
+        want = op(**kw, device="cpu", dtype=torch.float64)(mc)
+        assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("mode,kw", [
+    ("multi-stage", dict(cascade="stages")), ("single-stage", {}),
+    ("freq-domain", {}), ("pade-approx", {})])
+def test_vocoder_modes_on_the_card_match_the_cpu(cuda, mode, kw):
+    """MelCepstralVocoder(mode=...) float32 on the card against float64 on
+    the CPU, within the flagship's 1e-2 of max|y|; Newton runs 10 times,
+    the scan kernel 10 times in Pade mode (five first-order sections in
+    each of IMLSA and MLSA, complex64) and never otherwise."""
+    x = torch.as_tensor(synth_speech(2, 3200))
+    voc = pt.MelCepstralVocoder(mode=mode, **kw, device=cuda,
+                                dtype=torch.float32)
+    voc64 = pt.MelCepstralVocoder(mode=mode, **kw, device="cpu",
+                                  dtype=torch.float64)
+    dtypes = []
+    orig = scan.first_order_scan
+
+    def spy(p, xs):
+        dtypes.append(xs.dtype)
+        return orig(p, xs)
+
+    scan.first_order_scan = spy
+    try:
+        newton.launches = scan.launches = 0
+        with torch.no_grad():
+            y = voc.analysis_synthesis(x.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        scan.first_order_scan = orig
+    pade = mode == "pade-approx"
+    assert newton.launches == 10
+    assert scan.launches == (10 if pade else 0)
+    assert dtypes == ([torch.complex64] * 10 if pade else [])
+    with torch.no_grad():
+        assert _rel(y, voc64.analysis_synthesis(x.double())) <= 1e-2
+
+
+def test_zerodf_fft_path_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((4, 1600)))
+    b = torch.as_tensor(rng.standard_normal((4, 20, 200)) * 0.1)
+    f = pt.AllZeroDigitalFilter(199, 80, zeroth_index=10, device=cuda,
+                                dtype=torch.float32)
+    f64 = pt.AllZeroDigitalFilter(199, 80, zeroth_index=10, device="cpu",
+                                  dtype=torch.float64)
+    got = f(x.float().to(cuda), b.float().to(cuda))
+    assert _rel(got, f64(x, b)) <= 1e-5

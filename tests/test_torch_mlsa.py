@@ -183,10 +183,13 @@ def test_zerodf_direct(ignore_gain, zeroth):
     kw = dict(ignore_gain=ignore_gain, zeroth_index=zeroth)
     _close(pt.AllZeroDigitalFilter(7, 8, **kw, **F64)(*_t(x, b)),
            JZerodf(7, 8, **kw)(*map(jnp.asarray, (x, b))))
-    with pytest.raises(NotImplementedError):
-        pt.AllZeroDigitalFilter(40, 8, **F64)(
-            torch.zeros(2, 40, dtype=torch.float64),
-            torch.zeros(2, 5, 41, dtype=torch.float64))
+    # M = 40: the FFT path (the direct one under ignore_gain)
+    b40 = RNG.standard_normal((2, 5, 41))
+    b40[..., 0] += 2.0
+    b40[..., -1] += 2.0
+    kw40 = dict(ignore_gain=ignore_gain, zeroth_index=5 * zeroth)
+    _close(pt.AllZeroDigitalFilter(40, 8, **kw40, **F64)(*_t(x, b40)),
+           JZerodf(40, 8, **kw40)(*map(jnp.asarray, (x, b40))))
 
 
 @pytest.mark.parametrize("cascade", ["folded", "fused"])
@@ -214,11 +217,18 @@ def test_mlsa_phases(phase):
 
 
 def test_not_ported_paths_raise():
-    for mode in ("single-stage", "freq-domain", "pade-approx"):
-        with pytest.raises(NotImplementedError):
-            pt.MLSA(4, 8, mode=mode, **F64)
-    with pytest.raises(NotImplementedError):
-        pt.MLSA(4, 8, cascade="stages", **F64)
+    """The modes and the cascade that the port refused before they were
+    ported now build and match the JAX package, on one small case each
+    (tests/test_torch_mglsadf_modes.py holds every phase)."""
+    B, N, P = 2, 5, 8
+    x = RNG.standard_normal((B, N * P))
+    mc = RNG.standard_normal((B, N, 5)) * 0.1
+    for kw in (dict(mode="single-stage", ir_length=48),
+               dict(mode="freq-domain", frame_length=32, fft_length=32),
+               dict(mode="pade-approx", cep_order=39),
+               dict(cascade="stages", cep_order=39, taylor_order=4)):
+        want = JMLSA(4, P, alpha=0.2, **kw)(*map(jnp.asarray, (x, mc)))
+        _close(pt.MLSA(4, P, alpha=0.2, **kw, **F64)(*_t(x, mc)), want)
 
 
 @pytest.mark.parametrize("B,N,P,M,S,advance",

@@ -113,13 +113,15 @@ def test_rate_reports_unmeasured_device_time():
         "2.0000 ms, 1.675 TB/s, 50.0 % of the bound")
 
 
-def test_busy_share_reads_one_window_unclamped():
+def test_busy_share_reads_one_window_unclamped(monkeypatch):
     """The share is the busy time over the same calls' elapsed time, as
-    measured: never clamped to 100 %."""
+    measured: never clamped to 100 %; with it, how many profiler windows
+    so far were profiled twice."""
+    monkeypatch.setattr(chip_smoke, "PROFILED", {"windows": 7, "again": 1})
     assert chip_smoke.busy_share(2.0, 4.0) == (
         "device busy 2.000 ms of 4.000 ms elapsed in the same profiled "
-        "calls (50.0 %)")
-    assert chip_smoke.busy_share(4.1, 4.0).endswith("(102.5 %)")
+        "calls (50.0 %; 1 of 7 profiler windows so far profiled twice)")
+    assert "(102.5 %;" in chip_smoke.busy_share(4.1, 4.0)
 
 
 @pytest.mark.parametrize("algo", ["fcnf0", "crepe"])
@@ -145,3 +147,93 @@ def test_conv_flops_counts_every_layer(monkeypatch, algo):
         macs.append(nn_.CREPE_PITCH_BINS * 256)      # the classifier
     assert chip_smoke.conv_flops(algo, "tiny") == 2.0 * sum(macs)
 
+
+
+def test_battery_is_bench_alls_battery():
+    """chip_smoke.Battery at float64 on the CPU against bench_all.py's
+    battery as the JAX package computes it, on its 8 channels of 4,096
+    samples (rtol 1e-5 / atol 1e-8)."""
+    import jax.numpy as jnp
+
+    import diffsptk_tpu as dsp
+
+    x = np.random.default_rng(9).standard_normal((8, 4096))
+    T = x.shape[-1]
+    xj = jnp.asarray(x)
+    want = (dsp.ICQT(64, 16000, n_bin=24)(dsp.CQT(64, 16000, n_bin=24)(xj),
+                                          out_length=T)
+            + dsp.IMDCT(256)(dsp.MDCT(256)(xj), out_length=T)
+            + dsp.IPQMF(4, 47)(dsp.PQMF(4, 47)(xj))[..., 0, :T])
+    got = chip_smoke.Battery("cpu", torch.float64)(torch.as_tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-8)
+
+
+def test_battery_stage_bounds_count_the_work(monkeypatch):
+    """Each stage's bound from its shapes: the time-basis overlap-add's
+    operations (two octaves of 2 x 24 x 8,192 per frame) and the PQMF
+    pair's (2 x 48 taps x 4 bands per sample, each way)."""
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda torch, fn, iters, warm: 0.0)
+    C, T = 2, 7680
+    bat = chip_smoke.Battery("cpu", torch.float32)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((C, T)),
+                        dtype=torch.float32)
+    stages = chip_smoke.battery_stages(torch, bat, x)
+    n = T // 64
+    ms, bound, by = stages["time-basis overlap-add"]
+    assert ms == 0.0 and by == "operations"
+    assert bound == pytest.approx(
+        2 * (2 * C * n * 24 * 8192) / chip_smoke.F32_PEAK * 1e3)
+    assert stages["pqmf convs"][1] == pytest.approx(max(
+        2 * (2 * C * 4 * T * 48) / chip_smoke.F32_PEAK * 1e3,
+        4 * (C * T + C * 4 * T + 4 * 48 + C * 4 * T + C * T + 4 * 48)
+        / chip_smoke.HBM_RATE * 1e3))
+    assert all(v[1] > 0 for v in stages.values())
+
+
+def test_profile_chain_profiles_an_empty_window_once_more(monkeypatch,
+                                                          capsys):
+    """A window with no device activity recorded is profiled once more,
+    with a note; a second empty window reads as no device function, so a
+    check on the count still fails.  ``PROFILED`` counts the windows and
+    the second attempts."""
+    import torch.profiler
+
+    cuda = torch.autograd.DeviceType.CUDA
+    traces = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.trace = traces.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self.trace
+
+    def kernel(start):
+        return types.SimpleNamespace(
+            name="scan_kernel", device_type=cuda, device_time=4.0,
+            time_range=types.SimpleNamespace(start=start, end=start + 4.0))
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "PROFILED", {"windows": 0, "again": 0})
+    traces[:] = [[kernel(0.0)], [], [kernel(0.0), kernel(10.0)]]
+    chip_smoke.profile_chain(torch, lambda: None, calls=1)
+    assert chip_smoke.PROFILED == {"windows": 1, "again": 0}
+    busy, top, n_device, _, _ = chip_smoke.profile_chain(
+        torch, lambda: None, calls=2)
+    assert n_device == 1 and busy == pytest.approx(0.004)
+    assert top == [("scan_kernel", pytest.approx(0.004))]
+    assert chip_smoke.PROFILED == {"windows": 2, "again": 1}
+    assert ("profiling them once more (1 of 2 profiler windows so far "
+            "profiled twice)") in capsys.readouterr().out
+    traces[:] = [[], []]
+    assert chip_smoke.profile_chain(torch, lambda: None, calls=2)[2] == 0
+    assert chip_smoke.PROFILED == {"windows": 3, "again": 2}
