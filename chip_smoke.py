@@ -13,7 +13,9 @@ Phases (each prints one line; any failure exits non-zero):
                solve at n=25, B=7,680; its backward against the twin's;
                its time per call and on the device, and the share of
                its bound; and at B=64, below the JAX package's batch gate,
-               against float64 and against the port's plain solve;
+               against float64 and against the port's plain solve; then
+               its two-generator entry (mgcep's) the same way at n=24,
+               B=7,680, and against its twin at n = 1, 12 and 33;
   4. K2     -- the cascade kernel's chunked entry at the flagship
                geometry (B=32, N=240, P=80, M=199, S=20) against its
                folded twin and its direct plain version: time, bound,
@@ -121,6 +123,22 @@ Phases (each prints one line; any failure exits non-zero):
                (1e-2 of max|y|), row 0 within 1e-2 of float64 on the CPU,
                the per-sample loop's host time and the scan's device
                time;
+ 27. mgc    -- mel-generalized cepstral analysis-synthesis (mgc_chain:
+               STFT -> mgcep with gamma = -1/3 -> the inverse and the
+               forward MGLSA filter, cep_order 199, Taylor order 20, the
+               fused cascade) on 32 x 19,200 samples: the Newton kernel's
+               two-generator entry 11 launches a call, the cascade 40; mgc
+               and y against the twin path (1e-4; 1e-2 of max|y|), row 0
+               against float64 on the CPU (1e-2 of max|y|), SNR above 20
+               dB, a gradient through the two-generator backward (22
+               launches), the median and p90 of 20 calls, busy share and
+               peak memory;
+ 28. analysis-rest -- smcep (one-generator Newton 10 launches), lpc2par /
+               par2lpc, lpc2lsp / lsp2lpc, lsp2sp, fftcep, c2acr, c2mpir /
+               mpir2c, the postfilter, mlsacheck, the polynomial roots (both
+               methods) and the CSM pair once each on the card at the
+               flagship's shapes, on the port's own outputs, each against
+               float64 on the CPU within its bar, with no host read;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -534,6 +552,15 @@ def check_scan(torch, dev, card: str) -> dict:
     ms_c = cuda_ms(torch, lambda: scan.first_order_scan(pc, xc), 200)
     n_device = profile_chain(
         torch, lambda: scan.first_order_scan(p, x), 20)[2]
+    if n_device != 1:
+        # The profiler has dropped a record of a window now and then
+        # (0.95 functions a scan once, 19 records of 20 calls): profile
+        # it once more, counted with the empty windows.
+        PROFILED["again"] += 1
+        print(f"[K5] the profiler recorded {n_device} device functions a "
+              f"scan; profiling once more ({profiled_again()})", flush=True)
+        n_device = profile_chain(
+            torch, lambda: scan.first_order_scan(p, x), 20)[2]
     check(n_device == 1, f"K5: a scan ran {n_device} device functions, "
           "expected 1")
     device_ms = kernel_device_ms(torch, lambda: scan.first_order_scan(p, x),
@@ -594,6 +621,429 @@ def lpc_chain(torch, M: int, device, dtype, eps=None):
         return a, e, poledf(e, a)             # resynthesis K/A(z)
 
     return roundtrip, (analysis, inverse, poledf)
+
+
+MGC = dict(alpha=0.42, c=3)     # [mgc]: HTS's gamma = -1/3 at 16 kHz
+
+
+def mgc_chain(torch, device, dtype):
+    """[mgc]'s chain: STFT(400, 80, 512) power spectrum ->
+    MelGeneralizedCepstralAnalysis(M=24, alpha 0.42, c=3) -> the inverse
+    MGLSA filter to the excitation -> the MGLSA filter (cep_order 199,
+    Taylor order 20, the fused cascade).  Returns x -> (mgc, excitation,
+    resynthesis) and the analysis stage alone.
+
+    The inverse of the MGLSA filter (1 + gamma C(z))^(1/gamma) is the
+    MGLSA filter at -gamma on -mgc, (1 - gamma C(z))^(-1/gamma).
+    PseudoInverseMGLSADigitalFilter negates mgc at the same gamma, which
+    inverts the filter only at gamma = 0."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=device, dtype=dtype)
+    P = 80
+    stft = pt.STFT(400, P, 512, eps=0, relative_floor=-80,
+                   out_format="power", **kw)
+    mgcep = pt.MelGeneralizedCepstralAnalysis(
+        fft_length=512, cep_order=24, n_iter=10, **MGC, **kw)
+    fkw = dict(alpha=MGC["alpha"], cep_order=199, taylor_order=20,
+               cascade="fused", **kw)
+    gamma = -1.0 / MGC["c"]
+    inverse = pt.PseudoMGLSADigitalFilter(24, P, gamma=-gamma, **fkw)
+    mglsa = pt.PseudoMGLSADigitalFilter(24, P, gamma=gamma, **fkw)
+
+    def analysis(xw):
+        return mgcep(stft(xw))
+
+    def roundtrip(xw):
+        mgc = analysis(xw)
+        e = inverse(xw[..., :mgc.shape[-2] * P], -mgc)
+        return mgc, e, mglsa(e, mgc)
+
+    return roundtrip, analysis
+
+
+def toephank_case(n: int, B: int, seed: int = 11):
+    """Two-generator Newton systems: p (n, B), q (2n-1, B), b (n, B),
+    float32, lane-major, diagonally dominant."""
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((n, B)).astype(np.float32) * 0.1
+    p[0] += 4.0 + n * 0.2
+    q = rng.standard_normal((2 * n - 1, B)).astype(np.float32) * 0.1
+    b = rng.standard_normal((n, B)).astype(np.float32)
+    return p, q, b
+
+
+def check_toephank(torch, dev, card: str, ptxas: str) -> dict:
+    """[K1]'s two-generator rows: the entry mgcep takes, at n=24 and
+    B=7,680 (mgcep's systems at the flagship's frame count) against its
+    twin and a float64 solve, its backward against the twin's, n = 1, 12
+    and 33 against the twin, and its times beside the bound and
+    torch.linalg.solve on the dense matrix."""
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import newton
+
+    tol = 2e-4
+    errs = {}
+    for n in (1, 12, 33):
+        p, q, b = (torch.as_tensor(a, device=dev)
+                   for a in toephank_case(n, 1001, seed=n))
+        x_k = newton.toephank_solve_lane_major(p, q, b)
+        x_p = newton.toephank_solve_plain(p, q, b)
+        errs[n] = float((x_k - x_p).abs().max())
+        check(bool(torch.allclose(x_k, x_p, rtol=tol, atol=tol)),
+              f"K1 two generators n={n} disagrees with its twin: {errs[n]}")
+    n, B = 24, 7680
+    p, q, b = (torch.as_tensor(a, device=dev) for a in toephank_case(n, B))
+    x_k = newton.toephank_solve_lane_major(p, q, b)
+    x_p = newton.toephank_solve_plain(p, q, b)
+    i = np.arange(n)
+    idx_t = torch.as_tensor(np.abs(i[:, None] - i[None, :]), device=dev)
+    idx_h = torch.as_tensor(i[:, None] + i[None, :], device=dev)
+    A64 = p.double().T[:, idx_t] + q.double().T[:, idx_h]    # (B, n, n)
+    x_64 = torch.linalg.solve(A64, b.double().T[..., None])[..., 0].T
+    err_twin = float((x_k - x_p).abs().max())
+    err_64 = float((x_k.double() - x_64).abs().max())
+    check(bool(torch.allclose(x_k, x_p, rtol=tol, atol=tol)),
+          f"K1 two generators disagrees with its twin: {err_twin}")
+    check(bool(torch.allclose(x_k.double(), x_64, rtol=tol, atol=tol)),
+          f"K1 two generators disagrees with the float64 solve: {err_64}")
+    leaves = [t.clone().requires_grad_(True) for t in (p, q, b)]
+    g = torch.cos(x_p)
+    newton.toephank_solve_t(*leaves).backward(g)
+    grads = [t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    with twins():
+        newton.toephank_solve_t(*leaves).backward(g)
+    err_grad = max(float((a - t.grad).abs().max())
+                   for a, t in zip(grads, leaves))
+    check(all(bool(torch.allclose(a, t.grad, rtol=tol, atol=tol))
+              for a, t in zip(grads, leaves)),
+          f"K1 two generators' backward disagrees with the twin's: "
+          f"{err_grad}")
+
+    def solve():
+        return newton.toephank_solve_lane_major(p, q, b)
+
+    ms = cuda_ms(torch, solve, 200)
+    dev_ms = kernel_device_ms(torch, solve, "newton_kernel")[0]
+    plain_ms = cuda_ms(torch, lambda: newton.toephank_solve_plain(p, q, b),
+                       3, warm=1)
+    A32, b32 = A64.float(), b.T.contiguous()[..., None]
+    lib_ms = cuda_ms(torch, lambda: torch.linalg.solve(A32, b32), 20)
+    nbytes = (n + 2 * n - 1 + 2 * n) * B * 4.0
+    bound, by = bound_ms(nbytes, B * (n ** 3 / 3 + 2 * n ** 2))
+    print(f"[K1] two generators (mgcep's entry) n={n} B={B}: |kernel-twin| "
+          f"{err_twin:.3e}, |kernel-f64| {err_64:.3e}, backward "
+          f"{err_grad:.3e}, n = 1, 12, 33 at B=1,001: "
+          + ", ".join(f"{v:.3e}" for v in errs.values())
+          + f" (tol {tol}); kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, "
+          f"torch.linalg.solve {lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), "
+          f"{100 * bound / ms:.2f} % of the bound reached; the kernel's "
+          f"device time {device_rate(nbytes, dev_ms, bound)}; ptxas "
+          f"newton_kernel: {ptxas} | {card}", flush=True)
+    return dict(max_abs_err=err_twin, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+
+
+def run_mgc(torch, xs, card: str) -> dict:
+    """[mgc]: the mel-generalized cepstral chain (mgc_chain: mgcep at
+    gamma = -1/3, then the inverse and forward MGLSA filters) on the
+    card, float32: launch counts (the Newton kernel's two-generator entry
+    1 + n_iter = 11 times, the cascade 2 x 20), mgc and y of the kernel
+    path against the twin path (mgc 1e-4, y 1e-2 of max|y|), row 0's y
+    against a float64 run on the CPU (1e-2 of max|y|), the SNR of y
+    against x above 20 dB, finite non-zero gradients through mgcep (the
+    two-generator backward), the median and p90 of 20 calls, the busy
+    share, the top device functions and peak memory."""
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import mlsa, newton, solve
+
+    B, T = xs.shape
+    chain, analysis = mgc_chain(torch, "cuda", torch.float32)
+    for mod in (newton, mlsa, solve):
+        mod.launches = 0
+    newton.launches_toephank = 0
+    with torch.no_grad():
+        mgc, e, y = chain(xs)
+        torch.cuda.synchronize()
+        launches = {"newton": newton.launches,
+                    "newton_toephank": newton.launches_toephank,
+                    "mlsa_cascade": mlsa.launches,
+                    "spd_solve": solve.launches}
+        want = {"newton": 11, "newton_toephank": 11, "mlsa_cascade": 40,
+                "spd_solve": 0}
+        for key, count in want.items():
+            check(launches[key] == count,
+                  f"[mgc] {key} launched {launches[key]} times, expected "
+                  f"{count}")
+        x_n = xs[..., :mgc.shape[-2] * 80]
+        check(y.shape == x_n.shape and bool(torch.isfinite(y).all())
+              and tuple(mgc.shape) == (B, T // 80, 25),
+              "[mgc] output is not finite or has the wrong shape")
+        with twins():
+            mgc_p, _, y_p = chain(xs)
+        torch.cuda.synchronize()
+        err_mgc = float((mgc - mgc_p).abs().max())
+        check(bool(torch.allclose(mgc, mgc_p, rtol=1e-4, atol=1e-4)),
+              f"[mgc] mgc of the kernel path disagrees with the twin path: "
+              f"{err_mgc}")
+        y_scale = float(y_p.abs().max())
+        err_y = float((y - y_p).abs().max())
+        check(err_y <= 1e-2 * y_scale,
+              f"[mgc] y of the kernel path disagrees with the twin path: "
+              f"{err_y} > 1e-2 * {y_scale}")
+        chain64, _ = mgc_chain(torch, "cpu", torch.float64)
+        mgc64, _, y64 = chain64(xs[:1].double().cpu())
+        err_mgc64 = float((mgc[:1].double().cpu() - mgc64).abs().max())
+        err_y64 = float((y[:1].double().cpu() - y64).abs().max())
+        scale64 = float(y64.abs().max())
+        check(err_y64 <= 1e-2 * scale64,
+              f"[mgc] row 0's y against float64 on the CPU: {err_y64} > "
+              f"1e-2 * {scale64}")
+        snr = float(10 * torch.log10((x_n ** 2).sum()
+                                     / ((y - x_n) ** 2).sum()))
+        check(snr > 20.0, f"[mgc] SNR {snr:.2f} dB is too low")
+        calls = cuda_call_ms(torch, lambda: chain(xs), 20)
+        ana = float(np.median(cuda_call_ms(torch, lambda: analysis(xs), 20)))
+        with twins():
+            plain_ms = cuda_ms(torch, lambda: chain(xs), 2, warm=1)
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: chain(xs))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        chain(xs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    xg = xs[:2, :3200].clone().requires_grad_(True)
+    newton.launches_toephank = 0
+    (chain(xg)[2] ** 2).sum().backward()
+    torch.cuda.synchronize()
+    gmax = float(xg.grad.abs().max())
+    check(newton.launches_toephank == 22,
+          f"[mgc] two-generator launches with the backward "
+          f"{newton.launches_toephank}, expected 22")
+    check(bool(torch.isfinite(xg.grad).all()) and gmax > 0,
+          "[mgc] gradient is not finite or is zero")
+    med = float(np.median(calls))
+    print(f"[mgc] B={B} T={T} (mgcep M=24, alpha 0.42, c=3, 10 "
+          f"iterations; inverse and forward MGLSA, cep_order 199, Taylor "
+          f"order 20, fused): launches {launches}; |mgc kernel-twin| "
+          f"{err_mgc:.3e} (tol 1e-4); |y kernel-twin| {err_y:.3e} (tol "
+          f"1e-2 * {y_scale:.3f}); row 0 against CPU float64: mgc "
+          f"{err_mgc64:.3e}, y {err_y64:.3e} (tol 1e-2 * {scale64:.3f}); SNR "
+          f"{snr:.2f} dB (bar 20); median {med:.3f} ms per call (p90 "
+          f"{float(np.percentile(calls, 90)):.3f}, {len(calls)} calls), "
+          f"{B * T / (med * 1e-3):.1f} samples/s, the analysis alone "
+          f"{ana:.3f} ms; twin path {plain_ms:.3f} ms; "
+          f"{busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions per call; peak memory {peak / 2 ** 30:.3f} GiB "
+          f"({(peak - base) / 2 ** 30:.3f} above the "
+          f"{base / 2 ** 30:.3f} held before); gradient through mgcep "
+          f"(B=2, T=3,200): two-generator launches "
+          f"{newton.launches_toephank} with the backward, finite, "
+          f"max|dL/dx| {gmax:.4e}; top device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" | {card}",
+          flush=True)
+    return launches
+
+
+def analysis_rest_ops(torch, device, dtype) -> dict:
+    """[analysis-rest]'s modules, each at the flagship's shapes (fft
+    length 512, order 24)."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "smcep": pt.SecondOrderAllPassMelCepstralAnalysis(
+            fft_length=512, cep_order=24, alpha=0.1, theta=0.3, n_iter=10,
+            **kw),
+        "lpc2par": pt.LinearPredictiveCoefficientsToParcorCoefficients(
+            24, **kw),
+        "par2lpc": pt.ParcorCoefficientsToLinearPredictiveCoefficients(
+            24, **kw),
+        "lpc2lsp": pt.LinearPredictiveCoefficientsToLineSpectralPairs(
+            24, **kw),
+        "lsp2lpc": pt.LineSpectralPairsToLinearPredictiveCoefficients(
+            24, **kw),
+        "lsp2sp": pt.LineSpectralPairsToSpectrum(24, 512, **kw),
+        "fftcep": pt.CepstralAnalysis(512, 24, n_iter=3, **kw),
+        "c2acr": pt.CepstrumToAutocorrelation(24, 24, n_fft=512, **kw),
+        "c2mpir": pt.CepstrumToMinimumPhaseImpulseResponse(24, 128,
+                                                           n_fft=512, **kw),
+        "mpir2c": pt.MinimumPhaseImpulseResponseToCepstrum(128, 24,
+                                                           n_fft=512, **kw),
+        "mcpf": pt.MelCepstrumPostfiltering(24, alpha=0.42, beta=0.2, **kw),
+        "mlsacheck": pt.MLSADigitalFilterStabilityCheck(
+            24, alpha=0.42, fast=False, n_fft=512, **kw),
+        "roots-aberth": pt.PolynomialToRoots(24, **kw),
+        "roots-eig": pt.PolynomialToRoots(24, method="eig", **kw),
+        "acr2csm": pt.AutocorrelationToCompositeSinusoidalModelCoefficients(
+            CSM_ORDER, **kw),
+        "csm2acr": pt.CompositeSinusoidalModelCoefficientsToAutocorrelation(
+            CSM_ORDER, **kw),
+    }
+
+
+# [analysis-rest]'s bars: max |card float32 - CPU float64| over max|CPU
+# float64|, on the same inputs.  Ten times a float32 CPU run's reading
+# (float32 against float64, both on the CPU, every frame of the same
+# signal), rounded up to a power of ten.  lsp2lpc expands a degree-24
+# polynomial from its unit-circle roots and keeps about two digits in
+# float32 (9.0e-3 on the CPU).
+ANALYSIS_REST_BARS = {
+    "smcep": 1e-6, "lpc2par": 1e-4, "par2lpc": 1e-5, "lpc2lsp": 1e-6,
+    "lsp2lpc": 1e-1, "lsp2sp": 1e-3, "fftcep": 1e-5, "c2acr": 1e-5,
+    "c2mpir": 1e-5, "mpir2c": 1e-5, "mcpf": 1e-5, "mlsacheck": 1e-5,
+    "roots-aberth": 1e-4, "roots-eig": 1e-2, "acr2csm": 1e-1,
+    "csm2acr": 1e-5}
+# The composite sinusoidal model's order.  Its frequencies are the
+# arccos of a polynomial's roots and its intensities a Vandermonde
+# solve, both ill-conditioned in float32: against float64 on the same
+# float32 inputs 1.2e-3 of max at order 5, 2.3e-3 at 7, 2.9e-2 at 9, and
+# NaN on 440 of 482 frames at 15 (CPU run).
+CSM_ORDER = 7
+
+
+def analysis_rest_inputs(torch, ops, xs) -> dict:
+    """Each module's input, made on ``xs``'s device from the port's own
+    outputs: the power spectrum, LPC(24) and autocorrelation of the
+    400-sample frames, the mel-cepstrum, and the modules' outputs."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=xs.device, dtype=xs.dtype)
+    frames = pt.Window(400, **kw)(pt.Frame(400, 80, **kw)(xs))
+    sp = pt.STFT(400, 80, 512, eps=0, relative_floor=-80,
+                 out_format="power", **kw)(xs)
+    a = pt.LPC(400, 24, **kw)(frames)
+    mc = pt.MelCepstralAnalysis(fft_length=512, cep_order=24, alpha=0.42,
+                                n_iter=10, **kw)(sp)
+    c = ops["fftcep"](sp)
+    w = ops["lpc2lsp"](a)
+    r = pt.Autocorrelation(400, CSM_ORDER, **kw)(frames)
+    poly = torch.cat((torch.ones_like(a[..., :1]), a[..., 1:]), dim=-1)
+    return {"smcep": sp, "lpc2par": a, "par2lpc": ops["lpc2par"](a),
+            "lpc2lsp": a, "lsp2lpc": w, "lsp2sp": w, "fftcep": sp,
+            "c2acr": c, "c2mpir": c, "mpir2c": ops["c2mpir"](c),
+            "mcpf": mc, "mlsacheck": mc, "roots-aberth": poly,
+            "roots-eig": poly, "acr2csm": r,
+            "csm2acr": ops["acr2csm"](r)}
+
+
+def analysis_rest_errors(out: dict, ref: dict) -> dict:
+    """For each module, max |out - ref| over max |ref| of each frame
+    (roots as sets, each of ``ref``'s against the nearest of
+    ``out``'s), flattened over the frames."""
+    errs = {}
+    for name, want in ref.items():
+        got = out[name].cpu().to(want.dtype)
+        if name.startswith("roots"):
+            diff = (got[..., :, None] - want[..., None, :]).abs().amin(-2)
+        else:
+            diff = (got - want).abs()
+        errs[name] = (diff.amax(-1) / want.abs().max()).flatten()
+    return errs
+
+
+# Frames a module may miss its bar on, as a share of the frames.  The
+# float32 Aberth iteration gives NaN on 1 of the 7,680 polynomials of
+# [mgc]'s signal in both packages, the same one (two iterates meet at a
+# root: 0 times inf; CPU runs).
+FRAMES_OFF = {"roots-aberth": 1e-3}
+
+
+# The modules of [analysis-rest] that read the card back to the host:
+# torch.linalg.eigvals of a CUDA tensor runs MAGMA's geev, which works on
+# the host (it syncs under torch.cuda.set_sync_debug_mode("error"), and
+# took 15.3 s for 7,680 companion matrices of order 24 on an H100 80GB
+# HBM3 at 700 W).  They run once, outside the sync check, timed by the
+# host clock.
+HOST_READS = ("roots-eig",)
+
+
+def run_analysis_rest(torch, xs, card: str) -> None:
+    """[analysis-rest]: every module this slice adds beside mgcep, once
+    on the card at the flagship's shapes (32 x 19,200 samples: 240
+    frames a row) on the port's own outputs, float32, each against the
+    port's float64 run on the CPU of the same inputs, every frame, within
+    its bar (ANALYSIS_REST_BARS; all but FRAMES_OFF of the frames for
+    the float32 Aberth iteration); smcep takes the Newton kernel's
+    one-generator entry 10 times; no module but HOST_READS reads the card
+    back to the host (torch.cuda.set_sync_debug_mode("error") around each
+    call, after a first call that makes the libraries' plans); each
+    module's median time of 5 calls."""
+    from diffsptk_tpu_torch.kernels import newton
+
+    ops = analysis_rest_ops(torch, "cuda", torch.float32)
+    ops64 = analysis_rest_ops(torch, "cpu", torch.float64)
+    on_card = [name for name in ops if name not in HOST_READS]
+    with torch.no_grad():
+        inputs = analysis_rest_inputs(torch, ops, xs)
+        for name in on_card:
+            ops[name](inputs[name])
+        torch.cuda.synchronize()
+        newton.launches = newton.launches_toephank = 0
+        out, synced = {}, []
+        for name in on_card:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out[name] = ops[name](inputs[name])
+            except RuntimeError as exc:
+                if "synchroniz" not in str(exc):
+                    raise
+                synced.append(name)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if name == "smcep":
+                torch.cuda.synchronize()
+                launches = (newton.launches, newton.launches_toephank)
+                check(launches == (10, 0),
+                      f"[analysis-rest] smcep: Newton launches {launches} "
+                      f"(all, two-generator), expected (10, 0)")
+        check(not synced, f"[analysis-rest] host reads in {synced}")
+        ms = {name: float(np.median(cuda_call_ms(
+            torch, lambda op=ops[name], x=inputs[name]: op(x), 5, warm=1)))
+            for name in on_card}
+        for name in HOST_READS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = ops[name](inputs[name])
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        ref = {name: op(inputs[name].double().cpu())
+               for name, op in ops64.items()}
+        frame_errs = analysis_rest_errors(out, ref)
+        n_frames = frame_errs["smcep"].numel()
+        off, errs = {}, {}
+        for name, e in frame_errs.items():
+            within = e <= ANALYSIS_REST_BARS[name]      # NaN is not
+            off[name] = int((~within).sum())
+            errs[name] = float(e[within].max()) if within.any() else 1.0
+            check(off[name] <= FRAMES_OFF.get(name, 0.0) * n_frames,
+                  f"[analysis-rest] {name} against float64 on the CPU: "
+                  f"{off[name]} of {n_frames} frames beyond the bar "
+                  f"{ANALYSIS_REST_BARS[name]} (max "
+                  f"{float(e.nan_to_num(nan=float('inf')).max()):.3e})")
+        nonfinite = {name: int((~torch.isfinite(v)).sum())
+                     for name, v in out.items()}
+        check(not any(n for name, n in nonfinite.items()
+                      if name not in FRAMES_OFF),
+              f"[analysis-rest] outputs not finite: {nonfinite}")
+    print(f"[analysis-rest] B={xs.shape[0]} T={xs.shape[1]} (240 frames a "
+          f"row, order 24, fft length 512), float32 against float64 on "
+          f"the CPU, every frame, of max|.|: "
+          + ", ".join(f"{k} {v:.3e} (bar {ANALYSIS_REST_BARS[k]})"
+                      for k, v in errs.items())
+          + f"; frames beyond the bar (each max above is over the "
+          f"others): " + ", ".join(
+              f"{k} {off[k]} of {n_frames} (allowed "
+              f"{FRAMES_OFF[k] * n_frames:.0f})" for k in FRAMES_OFF)
+          + f"; smcep's Newton launches 10 (one generator); no host read "
+          f"but in {list(HOST_READS)} (not checked); median ms per call (5 "
+          f"calls; {list(HOST_READS)} one call, host clock): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" | {card}", flush=True)
 
 
 def run_lpc(torch, M: int, xs, card: str, tag: str) -> tuple[dict, float]:
@@ -2341,6 +2791,9 @@ def main() -> int:
           f"port's plain solve {k1_small_plain:.4f} ms; ptxas "
           f"newton_kernel: {newton_ptxas} | {card}", flush=True)
 
+    report["newton_toephank"] = check_toephank(torch, dev, card,
+                                               newton_ptxas)
+
     # 4. K2: the cascade kernel's chunked entry at the flagship geometry
     report["mlsa_cascade"], k2 = check_cascade(
         torch, dev, card, "K2", True, 32, 240, 80, 199, 20, 21, ptxas)
@@ -2569,10 +3022,20 @@ def main() -> int:
     run_mglsadf_mode(torch, xw, card, "freq-domain")
     run_pade(torch, xw[:, :3200].contiguous(), card)
 
+    # 27. and 28. mel-generalized cepstral analysis-synthesis, and the
+    #     slice's other analysis modules
+    launches_mgc = run_mgc(torch, xw, card)
+    report["newton_toephank"]["launches"] = launches_mgc["newton_toephank"]
+    run_analysis_rest(torch, xw, card)
+
     kernels = []
     meta = {
         "newton": ("cuda", "diffsptk_tpu_torch/csrc/newton.cu",
                    "diffsptk_tpu/kernels/pallas_newton.py:44"),
+        "newton_toephank": (
+            "cuda", "diffsptk_tpu_torch/csrc/newton.cu",
+            "diffsptk_tpu/kernels/pallas_newton.py:44 (toephank_solve, "
+            ":241)"),
         "mlsa_cascade": ("cuda", "diffsptk_tpu_torch/csrc/mlsa_cascade.cu",
                          "diffsptk_tpu/kernels/pallas_mlsa.py:260"),
         "spd_solve": ("cuda", "diffsptk_tpu_torch/csrc/spd_solve.cu",

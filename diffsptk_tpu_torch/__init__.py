@@ -13,7 +13,20 @@ from .models.mcep_vocoder import MelCepstralVocoder
 from .models.world_vocoder import WorldVocoder
 from .ops.acorr import Autocorrelation
 from .ops.ap import Aperiodicity
+from .ops.cep import (
+    CepstralAnalysis,
+    CepstralDistance,
+    CepstrumToAutocorrelation,
+    CepstrumToMinimumPhaseImpulseResponse,
+    CepstrumToNegativeDerivativeOfPhaseSpectrum,
+    MinimumPhaseImpulseResponseToCepstrum,
+    NegativeDerivativeOfPhaseSpectrumToCepstrum,
+)
 from .ops.cqt import ConstantQTransform, InverseConstantQTransform
+from .ops.csm import (
+    AutocorrelationToCompositeSinusoidalModelCoefficients,
+    CompositeSinusoidalModelCoefficientsToAutocorrelation,
+)
 from .ops.excite import ExcitationGeneration
 from .ops.fftr import (
     RealValuedFastFourierTransform,
@@ -21,26 +34,47 @@ from .ops.fftr import (
 )
 from .ops.frame import Frame
 from .ops.freqt import FrequencyTransform
+from .ops.freqt2 import (
+    SecondOrderAllPassFrequencyTransform,
+    SecondOrderAllPassInverseFrequencyTransform,
+)
 from .ops.gnorm import (
     GeneralizedCepstrumGainNormalization,
     GeneralizedCepstrumInverseGainNormalization,
 )
 from .ops.levdur import LevinsonDurbin, ReverseLevinsonDurbin
+from .ops.linear_intpl import LinearInterpolation
 from .ops.lpc import LinearPredictiveCodingAnalysis
+from .ops.lsp import (
+    LinearPredictiveCoefficientsStabilityCheck,
+    LinearPredictiveCoefficientsToLineSpectralPairs,
+    LineSpectralPairsStabilityCheck,
+    LineSpectralPairsToLinearPredictiveCoefficients,
+    LineSpectralPairsToSpectrum,
+)
 from .ops.mc2b import (
     MelCepstrumToMLSADigitalFilterCoefficients,
     MLSADigitalFilterCoefficientsToMelCepstrum,
 )
 from .ops.mcep import CoefficientsFrequencyTransform, MelCepstralAnalysis
+from .ops.mcpf import (
+    MelCepstrumInversePowerNormalization,
+    MelCepstrumPostfiltering,
+    MelCepstrumPowerNormalization,
+    MLSADigitalFilterStabilityCheck,
+)
 from .ops.mdct import (
     HilbertTransform,
     InverseModifiedDiscreteCosineTransform,
     InverseModifiedDiscreteSineTransform,
+    InverseModifiedDiscreteTransform,
     ModifiedDiscreteCosineTransform,
     ModifiedDiscreteSineTransform,
+    ModifiedDiscreteTransform,
 )
 from .ops.mgc2mgc import MelGeneralizedCepstrumToMelGeneralizedCepstrum
 from .ops.mgc2sp import MelGeneralizedCepstrumToSpectrum
+from .ops.mgcep import MelGeneralizedCepstralAnalysis
 from .ops.mglsadf import (
     PseudoInverseMGLSADigitalFilter,
     PseudoMGLSADigitalFilter,
@@ -50,13 +84,21 @@ from .ops.pitch_spec import PitchAdaptiveSpectralAnalysis
 from .ops.parcor import (
     AllPoleToAllZeroDigitalFilterCoefficients,
     AllZeroToAllPoleDigitalFilterCoefficients,
+    InverseSineToParcorCoefficients,
+    LinearPredictiveCoefficientsToParcorCoefficients,
+    LogAreaRatioToParcorCoefficients,
+    ParcorCoefficientsToInverseSine,
+    ParcorCoefficientsToLinearPredictiveCoefficients,
+    ParcorCoefficientsToLogAreaRatio,
 )
 from .ops.poledf import AllPoleDigitalFilter
+from .ops.rootpol import PolynomialToRoots, RootsToPolynomial
 from .ops.pqmf import (
     FractionalOctaveBandAnalysis,
     PseudoQuadratureMirrorFilterBankAnalysis,
     PseudoQuadratureMirrorFilterBankSynthesis,
 )
+from .ops.smcep import SecondOrderAllPassMelCepstralAnalysis
 from .ops.spec import Spectrum
 from .ops.stft import (
     InverseShortTimeFourierTransform,
@@ -71,6 +113,7 @@ from .utils.carry import load_jax_params
 
 STFT = ShortTimeFourierTransform
 ISTFT = InverseShortTimeFourierTransform
+FFTR = RealValuedFastFourierTransform
 IFFTR = RealValuedInverseFastFourierTransform
 LPC = LinearPredictiveCodingAnalysis
 MLSA = PseudoMGLSADigitalFilter
@@ -91,12 +134,20 @@ __all__ = [
     "AllZeroToAllPoleDigitalFilterCoefficients",
     "Aperiodicity",
     "Autocorrelation",
+    "AutocorrelationToCompositeSinusoidalModelCoefficients",
     "BaseOp",
     "CQT",
+    "CepstralAnalysis",
+    "CepstralDistance",
+    "CepstrumToAutocorrelation",
+    "CepstrumToMinimumPhaseImpulseResponse",
+    "CepstrumToNegativeDerivativeOfPhaseSpectrum",
     "CoefficientsFrequencyTransform",
+    "CompositeSinusoidalModelCoefficientsToAutocorrelation",
     "ConstantQTransform",
     "Design",
     "ExcitationGeneration",
+    "FFTR",
     "FractionalOctaveBandAnalysis",
     "Frame",
     "FrequencyTransform",
@@ -113,24 +164,46 @@ __all__ = [
     "InverseConstantQTransform",
     "InverseModifiedDiscreteCosineTransform",
     "InverseModifiedDiscreteSineTransform",
+    "InverseModifiedDiscreteTransform",
     "InverseShortTimeFourierTransform",
+    "InverseSineToParcorCoefficients",
     "LPC",
     "LevinsonDurbin",
+    "LineSpectralPairsStabilityCheck",
+    "LineSpectralPairsToLinearPredictiveCoefficients",
+    "LineSpectralPairsToSpectrum",
+    "LinearInterpolation",
     "LinearPredictiveCodingAnalysis",
+    "LinearPredictiveCoefficientsStabilityCheck",
+    "LinearPredictiveCoefficientsToLineSpectralPairs",
+    "LinearPredictiveCoefficientsToParcorCoefficients",
+    "LogAreaRatioToParcorCoefficients",
     "MDCT",
     "MDST",
     "MLSA",
     "MLSADigitalFilterCoefficientsToMelCepstrum",
+    "MLSADigitalFilterStabilityCheck",
     "MelCepstralAnalysis",
     "MelCepstralVocoder",
+    "MelCepstrumInversePowerNormalization",
+    "MelCepstrumPostfiltering",
+    "MelCepstrumPowerNormalization",
     "MelCepstrumToMLSADigitalFilterCoefficients",
+    "MelGeneralizedCepstralAnalysis",
     "MelGeneralizedCepstrumToMelGeneralizedCepstrum",
     "MelGeneralizedCepstrumToSpectrum",
+    "MinimumPhaseImpulseResponseToCepstrum",
     "ModifiedDiscreteCosineTransform",
     "ModifiedDiscreteSineTransform",
+    "ModifiedDiscreteTransform",
+    "NegativeDerivativeOfPhaseSpectrumToCepstrum",
     "PQMF",
+    "ParcorCoefficientsToInverseSine",
+    "ParcorCoefficientsToLinearPredictiveCoefficients",
+    "ParcorCoefficientsToLogAreaRatio",
     "Pitch",
     "PitchAdaptiveSpectralAnalysis",
+    "PolynomialToRoots",
     "PseudoInverseMGLSADigitalFilter",
     "PseudoMGLSADigitalFilter",
     "PseudoQuadratureMirrorFilterBankAnalysis",
@@ -138,7 +211,11 @@ __all__ = [
     "RealValuedFastFourierTransform",
     "RealValuedInverseFastFourierTransform",
     "ReverseLevinsonDurbin",
+    "RootsToPolynomial",
     "STFT",
+    "SecondOrderAllPassFrequencyTransform",
+    "SecondOrderAllPassInverseFrequencyTransform",
+    "SecondOrderAllPassMelCepstralAnalysis",
     "ShortTimeFourierTransform",
     "Spectrum",
     "Unframe",

@@ -1,26 +1,34 @@
-// Toeplitz+Hankel Newton solve of mel-cepstral analysis, for sm_90a.
+// Toeplitz+Hankel Newton solve of (mel-generalized) cepstral analysis,
+// for sm_90a.
 //
-// Replaces: diffsptk_tpu/kernels/pallas_newton.py:_newton_kernel (reached
-// through toephank_solve_lane_major / newton_solve_t).
+// Replaces: diffsptk_tpu/kernels/pallas_newton.py:_newton_kernel, both
+// of its entries: toephank_solve (mgcep, two generators) and
+// newton_solve_t (mcep, one generator), each through
+// toephank_solve_lane_major.
 //
 // Computes, for each of B systems laid out lane-major (system index on the
-// fastest axis), x = A^-1 b with A[i][j] = rt[|i-j|] + rt[i+j]:
-//   rt (2n-1, B), b (n, B) -> x (n, B), float32, 1 <= n <= 33.
+// fastest axis), x = A^-1 b with A[i][j] = p[|i-j|] + q[i+j]:
+//   p (n, B), q (2n-1, B), b (n, B) -> x (n, B), float32, 1 <= n <= 33.
+// mcep's systems take p = q[:n] (A[i][j] = rt[|i-j|] + rt[i+j]): the
+// caller passes the same pointer for both, p then being the first n rows
+// of q at the same stride, and the kernel stages that generator once.
 //
 // Bound on this card: bytes.  At the mel-cepstral analysis shapes (n = 25,
 // B = 7,680) the solve needs about B (n^3/3 + 2n^2) = 50 MFLOP but must
-// move (2n-1 + 2n) B floats = 3.0 MB, so the least time is the ~0.9 us the
-// bytes take; in practice one launch costs more than either.
+// move (2n-1 + 2n) B floats = 3.0 MB (mgcep at n = 24: (n + 2n-1 + 2n) B
+// floats = 3.7 MB), so the least time is the ~1 us the bytes take; in
+// practice one launch costs more than either.
 //
 // Design: one warp per system, the system in registers.  n is a template
-// parameter (one instance per n, chosen by newton_solve_f32), so every
+// parameter (one instance per n, chosen by toephank_solve_f32), so every
 // loop over rows and columns unrolls and each lane's arrays are indexed
 // only statically.  Lane i holds row i of A, then of L; for n = 33 row 32
 // is computed by every lane alike (its inputs are all warp-uniform).
-//  - A block of 4 warps stages its 4 systems' rt and b through shared
-//    memory with coalesced loads (16 bytes of 4 consecutive systems per
-//    row), and writes x back the same way.  The latency of each step's
-//    shuffle, rsqrtf and shared round trip is hidden by other warps.
+//  - A block of 4 warps stages its 4 systems' generators and b through
+//    shared memory with coalesced loads (16 bytes of 4 consecutive
+//    systems per row), and writes x back the same way.  The latency of
+//    each step's shuffle, rsqrtf and shared round trip is hidden by
+//    other warps.
 //    4-warp blocks measured faster than 8-warp ones (n=25: 0.0216-0.0218
 //    against 0.0229 ms of device time on an H100 80GB HBM3 at 700 W,
 //    tools/torch_newton_gather_ab.py on both, in turns).  Holding n <= 25
@@ -43,7 +51,7 @@
 // ascending; y_j = (b_j - sum_{k<j} L[j][k] y_k) / L[j][j] and
 // x_j = (y_j - sum_{k>j} L[k][j] x_k) / L[j][j], each sum taken k
 // ascending: the JAX kernel's order and that of kernels/newton.py's
-// newton_solve_plain.  Each a - l m is one fused multiply-add here, two
+// toephank_solve_plain.  Each a - l m is one fused multiply-add here, two
 // roundings there.
 
 #include <cuda_runtime.h>
@@ -61,9 +69,9 @@ constexpr unsigned kAll = 0xffffffffu;
 // Shared memory of a block for order N.
 template <int N>
 struct Smem {
-  static constexpr int R = 2 * N - 1;  // generator length (odd)
+  static constexpr int R = 2 * N - 1;  // Hankel generator length (odd)
   static constexpr int LS = N | 1;     // odd row stride of the factor
-  float r[kWarps][R];                  // generators
+  float g[kWarps][N + R];              // generators: p at 0, q at N
   float v[kWarps][LS];                 // b, then x
   float f[kWarps][N][LS];              // L, for its transpose
   alignas(16) float col[kWarps][2][kCol];
@@ -71,7 +79,7 @@ struct Smem {
 
 template <int N>
 __global__ void __launch_bounds__(kWarps * 32)
-newton_kernel(const float* __restrict__ rt, const float* __restrict__ b,
+newton_kernel(const float* p, const float* q, const float* __restrict__ b,
               float* __restrict__ x, int B) {
   constexpr bool kRow32 = N > 32;  // row 32, computed by every lane
   constexpr int R = Smem<N>::R;
@@ -80,13 +88,22 @@ newton_kernel(const float* __restrict__ rt, const float* __restrict__ b,
   const int w = threadIdx.x >> 5;
   const int sys0 = blockIdx.x * kWarps;
   const size_t ld = static_cast<size_t>(B);
+  const bool one = p == q;  // one generator: p is q's first n rows
 
-  // Stage the block's systems; a system past B is the identity-like
-  // A = diag(2, 1, ...) with b = 0, so its lanes stay finite.
+  // Stage the block's systems.  A system past B gets p[0] = 1 and q = 0
+  // (with one generator, q[0] = 1: A = diag(2, 1, ...)) and b = 0, so
+  // its lanes stay finite.
   for (int e = threadIdx.x; e < R * kWarps; e += kWarps * 32) {
     const int k = e / kWarps, s = e % kWarps;
-    sm.r[s][k] = sys0 + s < B ? __ldg(rt + k * ld + sys0 + s)
-                              : (k == 0 ? 1.0f : 0.0f);
+    sm.g[s][N + k] = sys0 + s < B ? __ldg(q + k * ld + sys0 + s)
+                                  : (one && k == 0 ? 1.0f : 0.0f);
+  }
+  if (!one) {
+    for (int e = threadIdx.x; e < N * kWarps; e += kWarps * 32) {
+      const int k = e / kWarps, s = e % kWarps;
+      sm.g[s][k] = sys0 + s < B ? __ldg(p + k * ld + sys0 + s)
+                                : (k == 0 ? 1.0f : 0.0f);
+    }
   }
   for (int e = threadIdx.x; e < N * kWarps; e += kWarps * 32) {
     const int k = e / kWarps, s = e % kWarps;
@@ -96,12 +113,13 @@ newton_kernel(const float* __restrict__ rt, const float* __restrict__ b,
 
   // Lanes past the last row repeat row N-1: their results are never read.
   const int i = lane < N ? lane : N - 1;
-  const float* r = sm.r[w];
+  const float* tp = sm.g[w] + (one ? N : 0);  // Toeplitz generator
+  const float* hq = sm.g[w] + N;              // Hankel generator
   float a[N], a32[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    a[k] = r[i >= k ? i - k : k - i] + r[i + k];
-    if constexpr (kRow32) a32[k] = r[32 - k] + r[32 + k];
+    a[k] = tp[i >= k ? i - k : k - i] + hq[i + k];
+    if constexpr (kRow32) a32[k] = tp[32 - k] + hq[32 + k];
   }
 
   // Right-looking Cholesky: a[k] becomes L[i][k] for k < i.
@@ -197,14 +215,14 @@ newton_kernel(const float* __restrict__ rt, const float* __restrict__ b,
   }
 }
 
-using Launch = void (*)(const float*, const float*, float*, int,
-                        cudaStream_t);
+using Launch = void (*)(const float*, const float*, const float*, float*,
+                        int, cudaStream_t);
 
 template <int N>
-void launch(const float* rt, const float* b, float* x, int B,
+void launch(const float* p, const float* q, const float* b, float* x, int B,
             cudaStream_t stream) {
   const int grid = (B + kWarps - 1) / kWarps;
-  newton_kernel<N><<<grid, kWarps * 32, 0, stream>>>(rt, b, x, B);
+  newton_kernel<N><<<grid, kWarps * 32, 0, stream>>>(p, q, b, x, B);
 }
 
 template <int... I>
@@ -228,13 +246,16 @@ extern "C" int newton_smem_bytes(int n) {
   return smem_sizes(kOrders)[n - 1];
 }
 
-extern "C" int newton_solve_f32(const void* rt, const void* b, void* x, int n,
-                                int B, void* stream) {
+// p (n, B), q (2n-1, B), b and x (n, B), each row B floats apart; p == q
+// for mcep's one-generator systems (p = q[:n]).
+extern "C" int toephank_solve_f32(const void* p, const void* q, const void* b,
+                                  void* x, int n, int B, void* stream) {
   if (n < 1 || n > kMaxOrder || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  // Static shared memory, at most 20 KB (n = 33): no opt-in needed.
+  // Static shared memory, at most 21 KB (n = 33): no opt-in needed.
   static constexpr auto table = launches(kOrders);
-  table[n - 1](static_cast<const float*>(rt), static_cast<const float*>(b),
-               static_cast<float*>(x), B, static_cast<cudaStream_t>(stream));
+  table[n - 1](static_cast<const float*>(p), static_cast<const float*>(q),
+               static_cast<const float*>(b), static_cast<float*>(x), B,
+               static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

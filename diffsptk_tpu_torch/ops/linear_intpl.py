@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import BaseOp, Design, filter_values
+
 
 def linear_interpolate(x: torch.Tensor, upsampling_factor: int) -> torch.Tensor:
     """Upsample (..., N, D) -> (..., N*P, D) linearly along the frame axis
@@ -29,3 +31,28 @@ def linear_interpolate(x: torch.Tensor, upsampling_factor: int) -> torch.Tensor:
     if one_d:
         y = y[..., 0]
     return y
+
+
+class LinearInterpolation(BaseOp):
+    """Upsample (..., T, D) -> (..., T*P, D) by linear interpolation
+    between adjacent frames."""
+
+    def __init__(self, upsampling_factor: int, dtype=None,
+                 device=None) -> None:
+        super().__init__()
+        self._setup(self._design(**filter_values(locals())), dtype=dtype,
+                    device=device)
+
+    @staticmethod
+    def _check(upsampling_factor: int) -> None:
+        if upsampling_factor <= 0:
+            raise ValueError("upsampling_factor must be positive.")
+
+    @staticmethod
+    def _design(upsampling_factor: int) -> Design:
+        LinearInterpolation._check(upsampling_factor)
+        return Design(values={"upsampling_factor": upsampling_factor})
+
+    @staticmethod
+    def _forward(x: torch.Tensor, *, upsampling_factor: int) -> torch.Tensor:
+        return linear_interpolate(x, upsampling_factor)

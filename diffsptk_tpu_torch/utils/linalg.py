@@ -108,3 +108,9 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n <= _SPD_UNROLL_MAX and batch >= 8:
         return _spd_solve_batch_minor(A, b)
     return solve.spd_solve_plain(A, b)
+
+
+def vander(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (..., d, d) with X[i, j] = x[j] ** i."""
+    powers = torch.arange(x.shape[-1], dtype=x.dtype, device=x.device)
+    return x[..., None, :] ** powers[:, None]

@@ -110,6 +110,59 @@ def test_newton_kernel_rejects(cuda):
         newton.newton_solve_lane_major(rt, b)
 
 
+def _toephank(n, B, seed=0):
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((n, B)).astype(np.float32) * 0.1
+    p[0] += 4.0 + n * 0.2
+    q = rng.standard_normal((2 * n - 1, B)).astype(np.float32) * 0.1
+    b = rng.standard_normal((n, B)).astype(np.float32)
+    return p, q, b
+
+
+@pytest.mark.parametrize("n,B", [(1, 5), (12, 2049), (24, 7680), (24, 7683),
+                                 (33, 70)])
+def test_toephank_kernel_matches_twin(cuda, n, B):
+    """The two-generator entry (mgcep's systems), B not a multiple of a
+    block's 4 systems."""
+    p, q, b = (torch.as_tensor(a, device=cuda) for a in _toephank(n, B))
+    before = newton.launches, newton.launches_toephank
+    x = newton.toephank_solve_lane_major(p, q, b)
+    assert (newton.launches, newton.launches_toephank) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(x, newton.toephank_solve_plain(p, q, b),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_toephank_kernel_backward(cuda):
+    p, q, b = (torch.as_tensor(a.T.copy(), device=cuda).requires_grad_(True)
+               for a in _toephank(24, 300, seed=1))
+    newton.toephank_solve(p, q, b).sin().sum().backward()
+    grads = p.grad.clone(), q.grad.clone(), b.grad.clone()
+    p.grad = q.grad = b.grad = None
+    with pt.twins():
+        newton.toephank_solve(p, q, b).sin().sum().backward()
+    for got, want in zip(grads, (p.grad, q.grad, b.grad)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_mgcep_takes_the_two_generator_kernel(cuda):
+    """mgcep at gamma = -1/3 on the card: 1 + n_iter two-generator
+    launches, float32 within 1e-3 of max of float64 on the CPU."""
+    sp = pt.STFT(400, 80, 512, eps=0, relative_floor=-80, out_format="power",
+                 device="cpu", dtype=torch.float64)(
+        torch.as_tensor(synth_speech(2, 3200)))
+    kw = dict(fft_length=512, cep_order=24, alpha=0.42, c=3, n_iter=3)
+    op = pt.MelGeneralizedCepstralAnalysis(**kw, device=cuda,
+                                           dtype=torch.float32)
+    newton.launches = newton.launches_toephank = 0
+    got = op(sp.float().to(cuda))
+    torch.cuda.synchronize()
+    assert (newton.launches, newton.launches_toephank) == (4, 4)
+    want = pt.MelGeneralizedCepstralAnalysis(**kw, device="cpu",
+                                             dtype=torch.float64)(sp)
+    assert _rel(got, want) <= 1e-3
+
+
 def _cascade_case(cuda, B, N, P, M, S, seed=2):
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.standard_normal((B, N * P)), dtype=torch.float32,

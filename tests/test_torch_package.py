@@ -53,6 +53,12 @@ def test_imports_with_jax_blocked():
             "y = pt.AllPoleDigitalFilter(4, 8, device='cpu')(\n"
             "    torch.randn(2, 8), a[:, None])\n"
             "assert y.shape == (2, 8)\n"
+            "g = pt.MelGeneralizedCepstralAnalysis(fft_length=64,\n"
+            "    cep_order=4, c=3, n_iter=2, device='cpu')(\n"
+            "    torch.rand(2, 33) + 0.1)\n"
+            "w = pt.LinearPredictiveCoefficientsToLineSpectralPairs(\n"
+            "    4, device='cpu')(a)\n"
+            "assert g.shape == (2, 5) and w.shape == (2, 5)\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -237,3 +237,28 @@ def test_profile_chain_profiles_an_empty_window_once_more(monkeypatch,
     traces[:] = [[], []]
     assert chip_smoke.profile_chain(torch, lambda: None, calls=2)[2] == 0
     assert chip_smoke.PROFILED == {"windows": 3, "again": 2}
+
+
+def test_analysis_rest_errors_per_frame_and_roots_as_sets():
+    """Each frame's max error over the reference's max; roots compared
+    as sets, so their order does not count; NaN stays NaN (a frame that
+    no bar admits)."""
+    ref = {"lpc2par": torch.tensor([[1.0, 2.0], [3.0, 4.0]]),
+           "roots-aberth": torch.tensor([[1 + 1j, 2 - 1j, 3 + 0j]])}
+    out = {"lpc2par": torch.tensor([[1.0, 2.4], [3.0, float("nan")]]),
+           "roots-aberth": torch.tensor([[3 + 0j, 1 + 1j, 2 - 1.5j]])}
+    errs = chip_smoke.analysis_rest_errors(out, ref)
+    assert errs["lpc2par"][0] == pytest.approx(0.1)
+    assert torch.isnan(errs["lpc2par"][1])
+    assert errs["roots-aberth"].tolist() == pytest.approx([0.5 / 3])
+
+
+def test_mgc_chain_inverts_its_filter():
+    """The [mgc] chain's excitation goes through the MGLSA filter at
+    -gamma on -mgc, the exact inverse (a round trip above 15 dB on 1,600
+    samples at float64; the reference's pseudo inverse stays below 0)."""
+    x = torch.as_tensor(chip_smoke.synth_speech(1, 1600)).double()
+    mgc, e, y = chip_smoke.mgc_chain(torch, "cpu", torch.float64)[0](x)
+    assert mgc.shape == (1, 20, 25) and y.shape == x.shape
+    snr = 10 * torch.log10((x ** 2).sum() / ((y - x) ** 2).sum())
+    assert float(snr) > 15.0
