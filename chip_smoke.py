@@ -138,7 +138,28 @@ Phases (each prints one line; any failure exits non-zero):
                mpir2c, the postfilter, mlsacheck, the polynomial roots (both
                methods) and the CSM pair once each on the card at the
                flagship's shapes, on the port's own outputs, each against
-               float64 on the CPU within its bar, with no host read;
+               float64 on the CPU within its bar, with no host read but
+               the eig roots' stated host step;
+ 29. features -- MFCC and PLP at SPTK's command defaults (order 12, 20
+               channels, lifter 22) and PLP at order 24 with 40 channels
+               on the flagship's power spectrum: the SPD solve kernel 1
+               launch a PLP-24 call (2 with its backward), the others
+               none; each against the twin path (1e-4 of max) and row 0
+               against float64 on the CPU; gradients; times, busy share
+               and the kernel's device time at this call;
+ 30. gammatone -- gammatone analysis (30 bands at 16 kHz) then synthesis
+               on 32 x 19,200 samples: the scan kernel exactly 4
+               launches, complex64, each against its twin on its own
+               inputs; the round trip's SNR; row 0 against float64 on the
+               CPU; a gradient (8 launches); times, busy share, peak
+               memory and the kernel's device time against its bound;
+ 31. griffin -- GriffinLim(400, 80, 512), 100 iterations, on [features]'
+               spectrum: the initial phase equal to utils/prng.uniform's,
+               the spectral convergence falling, the twin path; times;
+ 32. ops-rest -- the DCT family, chroma, DRC, companding, Delta, MLPG,
+               the IIR and second-order filters and DTW once each at the
+               flagship's shapes against float64 on the CPU, with no
+               host read but DTW's stated host backtrack;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -953,12 +974,15 @@ def analysis_rest_errors(out: dict, ref: dict) -> dict:
 FRAMES_OFF = {"roots-aberth": 1e-3}
 
 
-# The modules of [analysis-rest] that read the card back to the host:
-# torch.linalg.eigvals of a CUDA tensor runs MAGMA's geev, which works on
-# the host (it syncs under torch.cuda.set_sync_debug_mode("error"), and
-# took 15.3 s for 7,680 companion matrices of order 24 on an H100 80GB
-# HBM3 at 700 W).  They run once, outside the sync check, timed by the
-# host clock.
+# The modules of [analysis-rest] that read the card back to the host by
+# design: PolynomialToRoots(method="eig") takes the companion eigenvalues
+# on the host, as the JAX package's callback does (ops/rootpol.py:
+# eig_roots), one copy of the batch there, one batched LAPACK call and
+# one copy back.  (torch.linalg.eigvals of the CUDA tensor, MAGMA's geev
+# one matrix at a time with a hidden round trip each, took 14.5 to 15.3 s
+# for these 7,680 companion matrices of order 24 on an H100 80GB HBM3 at
+# 700 W.)  They run once, outside the sync check, timed by the host
+# clock.
 HOST_READS = ("roots-eig",)
 
 
@@ -2650,6 +2674,476 @@ def run_pade(torch, xs, card: str) -> None:
           + f" | {card}", flush=True)
 
 
+# [features]: SPTK's command defaults for mfcc and plp (order 12, 20
+# channels, lifter 22) at the flagship's frame grid, and PLP at order 24
+# with 40 channels, whose Levinson-Durbin takes the SPD solve kernel.
+FEATURES = dict(fft_length=512, sample_rate=16000, lifter=22)
+
+
+def feature_ops(torch, device, dtype) -> dict:
+    """[features]' analyses of a power spectrum."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(FEATURES, device=device, dtype=dtype)
+    return {"mfcc": pt.MFCC(mfcc_order=12, n_channel=20, **kw),
+            "plp": pt.PLP(plp_order=12, n_channel=20, **kw),
+            "plp24": pt.PLP(plp_order=24, n_channel=40, **kw)}
+
+
+def power_spectrum(torch, xs):
+    """The flagship's STFT 400/80/512 power spectrum of ``xs``."""
+    import diffsptk_tpu_torch as pt
+
+    return pt.STFT(400, 80, 512, out_format="power", device=xs.device,
+                   dtype=xs.dtype)(xs)
+
+
+# [features]' bars: row 0 of the card's float32 against float64 on the
+# CPU on the same spectrum, of max|.|.  Ten times a float32 CPU run's
+# reading (row 0 of the same signal), rounded up to a power of ten.
+FEATURE_BARS = {"mfcc": 1e-5, "plp": 1e-4, "plp24": 1e-4}
+
+
+def run_features(torch, xs, card: str):
+    """[features]: MFCC, PLP and PLP-24 of the flagship's power spectrum
+    (32 x 19,200 samples: 32 x 241 frames), float32 on the card: the SPD
+    solve kernel 1 launch for PLP-24 and none for the others; each output
+    against the call with every kernel's twin (1e-4 of max); row 0
+    against float64 on the CPU (FEATURE_BARS); finite, non-zero gradients
+    (2 solve launches with PLP-24's backward); each analysis' median and
+    p90 of 20 calls and its busy share; the kernel's device time at this
+    call against its bound.  Returns the power spectrum and PLP-24's and
+    MFCC's outputs, which [griffin] and [ops-rest] take."""
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import solve
+
+    B, T = xs.shape
+    ops = feature_ops(torch, "cuda", torch.float32)
+    ops64 = feature_ops(torch, "cpu", torch.float64)
+    with torch.no_grad():
+        sp = power_spectrum(torch, xs)
+        out, launches = {}, {}
+        for name, op in ops.items():
+            solve.launches = 0
+            out[name] = op(sp)
+            torch.cuda.synchronize()
+            launches[name] = solve.launches
+        check(launches == {"mfcc": 0, "plp": 0, "plp24": 1},
+              f"[features] solve kernel launches {launches}, expected 1 "
+              f"for plp24 and none for the others")
+        for name, y in out.items():
+            check(bool(torch.isfinite(y).all()),
+                  f"[features] {name} is not finite")
+        with twins():
+            twin = {name: op(sp) for name, op in ops.items()}
+        err_twin = {name: rel_err(torch, out[name], twin[name].double())
+                    for name in ops}
+        for name, e in err_twin.items():
+            check(e <= 1e-4, f"[features] {name} of the kernel path "
+                  f"disagrees with the twin path: {e:.3e} of max")
+        sp64 = sp[:1].double().cpu()
+        err64 = {name: rel_err(torch, out[name][:1], op(sp64))
+                 for name, op in ops64.items()}
+        for name, e in err64.items():
+            check(e <= FEATURE_BARS[name],
+                  f"[features] {name} row 0 against float64 on the CPU: "
+                  f"{e:.3e} of max (bar {FEATURE_BARS[name]})")
+        ms, busy = {}, {}
+        for name, op in ops.items():
+            calls = cuda_call_ms(torch, lambda op=op: op(sp), 20)
+            ms[name] = (float(np.median(calls)),
+                        float(np.percentile(calls, 90)))
+            b_ms, _, n_dev, _, w_ms = profile_chain(
+                torch, lambda op=op: op(sp))
+            busy[name] = (busy_share(b_ms, w_ms), n_dev)
+        solve_dev = kernel_device_ms(torch, lambda: ops["plp24"](sp),
+                                     "spd_solve_kernel")[0]
+    n, frames = 24, B * sp.shape[-2]
+    solve_bound, solve_by = bound_ms(
+        (n * (n + 1) // 2 + 2 * n) * frames * 4.0,
+        frames * (n ** 3 / 3 + 2 * n ** 2))
+    gmax = {}
+    for name in ("plp24", "mfcc"):
+        spg = sp.clone().requires_grad_(True)
+        solve.launches = 0
+        ops[name](spg).sum().backward()
+        torch.cuda.synchronize()
+        if name == "plp24":
+            grad_launches = solve.launches
+        gmax[name] = float(spg.grad.abs().max())
+        check(bool(torch.isfinite(spg.grad).all()) and gmax[name] > 0,
+              f"[features] {name} gradient is not finite or is zero")
+    check(grad_launches == 2,
+          f"[features] PLP-24 with its backward launched the solve kernel "
+          f"{grad_launches} times, expected 2")
+    print(f"[features] B={B} T={T} ({frames} frames of STFT 400/80/512 "
+          f"power): solve kernel launches {launches} (plp24 with its "
+          f"backward {grad_launches}); kernel path against the twin path "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err_twin.items())
+          + " of max (tol 1e-4); row 0 against float64 on the CPU "
+          + ", ".join(f"{k} {v:.3e} (bar {FEATURE_BARS[k]})"
+                      for k, v in err64.items())
+          + "; gradients finite, max|dL/dsp| "
+          + ", ".join(f"{k} {v:.4e}" for k, v in gmax.items())
+          + "; median (p90) ms per call of 20: "
+          + ", ".join(f"{k} {v[0]:.3f} ({v[1]:.3f})" for k, v in ms.items())
+          + "; " + "; ".join(f"{k}: {v[0]} in {v[1]:.0f} device functions "
+                             f"per call" for k, v in busy.items())
+          + f"; the solve kernel at plp24's call (n=24, B={frames}): device "
+          f"{device_rate((n * (n + 1) // 2 + 2 * n) * frames * 4.0, solve_dev, solve_bound)}"
+          f", bound {solve_bound:.5f} ms ({solve_by}) | {card}", flush=True)
+    return sp, out
+
+
+# [gammatone]'s bars: row 0 of the card's float32 analysis and synthesis
+# against float64 on the CPU on the same input, of max|.|: ten times a
+# float32 CPU run's reading, rounded up to a power of ten.  The round
+# trip does not invert exactly: its SNR on the interior is 18.4 dB in
+# both packages at float64 on 1,600 samples (tests/test_torch_gammatone).
+GAMMATONE_BARS = {"analysis": 1e-4, "synthesis": 1e-4}
+GAMMATONE_SNR = 15.0
+
+
+def run_gammatone(torch, xs, card: str) -> int:
+    """[gammatone]: GammatoneFilterBankAnalysis(16000) (30 bands) then
+    GammatoneFilterBankSynthesis on 32 x 19,200 samples, float32 on the
+    card: the scan kernel exactly 4 launches (gamma = 4 one-pole passes),
+    all complex64 over 960 rows; each launch against
+    ``first_order_scan_plain`` on its recorded inputs at [K5]'s complex64
+    tolerance (1e-4); the round trip's SNR on the interior above
+    GAMMATONE_SNR; row 0 of both against float64 on the CPU
+    (GAMMATONE_BARS); a gradient through both (8 launches with the
+    backward); times, busy share, peak memory, and the kernel's device
+    time against its bound (the wrapper makes the broadcast pole
+    contiguous before each launch, so the kernel reads a full pole array:
+    the bound counts those bytes).  Returns the launches of one call."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.kernels import scan
+
+    B, T = xs.shape
+    kw = dict(device="cuda", dtype=torch.float32)
+    ana = pt.GammatoneFilterBankAnalysis(16000, **kw)
+    syn = pt.GammatoneFilterBankSynthesis(16000, **kw)
+    K = ana.a_tilde.shape[0]
+    with torch.no_grad():
+        sink = []
+        restore = record_calls(scan, "first_order_scan", sink)
+        scan.launches = 0
+        try:
+            sub = ana(xs)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = scan.launches
+        dtypes = sorted({str(args[1].dtype) for args, _ in sink})
+        shapes = sorted({tuple(args[1].shape) for args, _ in sink})
+        check(launches == 4 and len(sink) == 4
+              and dtypes == ["torch.complex64"],
+              f"[gammatone] scan launches {launches} on {dtypes}, expected "
+              f"4 on complex64")
+        pole_copy = not sink[0][0][0].is_contiguous()
+        scan_err = 0.0
+        for args, kwargs in sink:
+            y_k = scan.first_order_scan(*args, **kwargs)
+            y_p = scan.first_order_scan_plain(*args, **kwargs)
+            e = float((y_k - y_p).abs().max())
+            scan_err = max(scan_err, e)
+            check(bool(torch.allclose(y_k, y_p, rtol=1e-4, atol=1e-4)),
+                  f"[gammatone] a scan of {tuple(y_k.shape)} disagrees with "
+                  f"its twin: {e:.3e} (tol 1e-4)")
+        del sink, y_k, y_p
+        y = syn(sub)
+        check(tuple(sub.shape) == (B, K, T) and tuple(y.shape) == (B, 1, T)
+              and bool(torch.isfinite(sub).all())
+              and bool(torch.isfinite(y).all()),
+              "[gammatone] output is not finite or has the wrong shape")
+        inner = slice(800, T - 800)
+        snr = snr_db(torch, xs[:, inner], y[:, 0, inner])
+        check(snr > GAMMATONE_SNR, f"[gammatone] round-trip SNR {snr:.2f} "
+              f"dB (bar {GAMMATONE_SNR})")
+        ana64 = pt.GammatoneFilterBankAnalysis(16000, device="cpu",
+                                               dtype=torch.float64)
+        syn64 = pt.GammatoneFilterBankSynthesis(16000, device="cpu",
+                                                dtype=torch.float64)
+        sub64 = ana64(xs[:1].double().cpu())
+        err64 = {"analysis": rel_err(torch, sub[:1], sub64),
+                 "synthesis": rel_err(torch, y[:1], syn64(sub64))}
+        for name, e in err64.items():
+            check(e <= GAMMATONE_BARS[name],
+                  f"[gammatone] {name} row 0 against float64 on the CPU: "
+                  f"{e:.3e} of max (bar {GAMMATONE_BARS[name]})")
+        del sub64
+        calls = cuda_call_ms(torch, lambda: syn(ana(xs)), 10)
+        ana_ms = float(np.median(cuda_call_ms(torch, lambda: ana(xs), 10)))
+        scan_dev, _ = kernel_device_ms(torch, lambda: ana(xs), "scan_kernel",
+                                       calls=5)
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: syn(ana(xs)))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        syn(ana(xs))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    xg = xs[:4].clone().requires_grad_(True)
+    scan.launches = 0
+    (syn(ana(xg)) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    grad_launches = scan.launches
+    gmax = float(xg.grad.abs().max())
+    check(grad_launches == 8, f"[gammatone] scan launches with the "
+          f"backward {grad_launches}, expected 8")
+    check(bool(torch.isfinite(xg.grad).all()) and gmax > 0,
+          "[gammatone] gradient is not finite or is zero")
+    R = B * K
+    scan_bytes = 3 * R * T * 8.0
+    scan_bound, scan_by = bound_ms(scan_bytes, 8.0 * R * T)
+    med = float(np.median(calls))
+    print(f"[gammatone] B={B} T={T}, {K} bands: scan launches {launches} "
+          f"on {dtypes} of {shapes}, each against its twin on its own "
+          f"inputs {scan_err:.3e} (tol 1e-4); the pole reaches the wrapper "
+          f"{'broadcast, and the wrapper copies it contiguous' if pole_copy else 'contiguous'}"
+          f" ({R * T * 8 / 1e6:.1f} MB a launch); round-trip SNR on the "
+          f"interior {snr:.2f} dB (bar {GAMMATONE_SNR}); row 0 against "
+          f"float64 on the CPU "
+          + ", ".join(f"{k} {v:.3e} (bar {GAMMATONE_BARS[k]})"
+                      for k, v in err64.items())
+          + f"; gradient (B=4): scan launches with the backward "
+          f"{grad_launches}, finite, max|dL/dx| {gmax:.4e}; median "
+          f"{med:.3f} ms per call (p90 "
+          f"{float(np.percentile(calls, 90)):.3f}, {len(calls)} calls), "
+          f"the analysis alone {ana_ms:.3f} ms; the scan kernel's device "
+          f"time {scan_dev:.4f} ms a call ({launches} launches; "
+          f"{device_rate(launches * scan_bytes, scan_dev, launches * scan_bound)}"
+          f"), bound {scan_bound:.4f} ms a launch ({scan_by}: p, x read "
+          f"and y written once, complex64); {busy_share(busy_ms, wall_ms)} "
+          f"in {n_device:.0f} device functions per call; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} above "
+          f"the {base / 2 ** 30:.3f} held before); top device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:5])
+          + f" | {card}", flush=True)
+    return launches
+
+
+def spectral_convergence(torch, stft, s, y) -> float:
+    """|| s - |STFT(y)| ||_F / || s ||_F over the whole batch."""
+    mag = stft(y).abs()[..., : s.shape[-2], :]
+    return float(torch.linalg.vector_norm(s - mag)
+                 / torch.linalg.vector_norm(s))
+
+
+def run_griffin(torch, sp, T: int, card: str) -> None:
+    """[griffin]: GriffinLim(400, 80, 512) at its default 100 iterations
+    on [features]' power spectrum, float32 on the card: the initial phase
+    equal to 2 pi ``utils/prng.uniform`` (JAX's stream) bit for bit; the
+    spectral convergence after 100 iterations below that after 1; the
+    output against the twin path within 1e-2 of max|y|; the median of 3
+    calls and the busy share."""
+    import math
+
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.utils import prng
+
+    B = sp.shape[0]
+    kw = dict(device="cuda", dtype=torch.float32)
+    gl = pt.GriffinLim(400, 80, 512, **kw)
+    gl1 = pt.GriffinLim(400, 80, 512, n_iter=1, **kw)
+    stft = pt.STFT(400, 80, 512, out_format="complex", **kw)
+    with torch.no_grad():
+        s = torch.sqrt(sp + 1e-16)
+        phase = gl.phase_generator(s)
+        want = 2 * math.pi * prng.uniform(prng.PRNGKey(0, device=s.device),
+                                          s.shape, s.dtype)
+        check(bool(torch.equal(phase, want)),
+              "[griffin] initial phase differs from prng.uniform's")
+        y = gl(sp, T)
+        check(tuple(y.shape) == (B, T) and bool(torch.isfinite(y).all()),
+              "[griffin] output is not finite or has the wrong shape")
+        sc1 = spectral_convergence(torch, stft, s, gl1(sp, T))
+        sc100 = spectral_convergence(torch, stft, s, y)
+        check(sc100 < sc1, f"[griffin] spectral convergence {sc100:.4f} "
+              f"after 100 iterations, {sc1:.4f} after 1")
+        with twins():
+            y_twin = gl(sp, T)
+        err_twin = rel_err(torch, y, y_twin.double())
+        check(err_twin <= 1e-2, f"[griffin] output disagrees with the twin "
+              f"path: {err_twin:.3e} of max|y| (tol 1e-2)")
+        calls = cuda_call_ms(torch, lambda: gl(sp, T), 3, warm=1)
+        busy_ms, top, n_device, _, wall_ms = profile_chain(
+            torch, lambda: gl(sp, T), calls=1)
+    med = float(np.median(calls))
+    print(f"[griffin] B={B} T={T} (400/80/512, 100 iterations): initial "
+          f"phase equal to 2 pi prng.uniform; spectral convergence "
+          f"{sc1:.4f} after 1 iteration, {sc100:.4f} after 100; against the "
+          f"twin path {err_twin:.3e} of max|y| (tol 1e-2; no kernel on "
+          f"this path); median {med:.3f} ms per call ({len(calls)} calls: "
+          + ", ".join(f"{v:.3f}" for v in calls)
+          + f"), {med / 100:.4f} ms an iteration; "
+          f"{busy_share(busy_ms, wall_ms)} in {n_device:.0f} device "
+          f"functions per call; top device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:4])
+          + f" | {card}", flush=True)
+
+
+def ops_rest_ops(torch, device, dtype, frames: int = 240) -> dict:
+    """[ops-rest]'s modules at the flagship's shapes (``frames`` frames a
+    row): each a function of the inputs that ``ops_rest_inputs`` gives
+    it."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=device, dtype=dtype)
+    ops = {name.lower(): getattr(pt, name)(256, **kw)
+           for name in ("DCT", "IDCT", "DST", "IDST", "DHT", "IDHT", "WHT")}
+    dtw = pt.DTW(p=4, **kw)
+    ops.update({
+        "chroma": pt.ChromaFilterBankAnalysis(fft_length=512, n_channel=12,
+                                              sample_rate=16000, **kw),
+        "drc": pt.DRC(sample_rate=16000, threshold=-30, ratio=4, **kw),
+        "alaw": pt.ALawCompression(**kw), "ialaw": pt.ALawExpansion(**kw),
+        "ulaw": pt.MuLawCompression(**kw), "iulaw": pt.MuLawExpansion(**kw),
+        "quantize": pt.UniformQuantization(**kw),
+        "dequantize": pt.InverseUniformQuantization(**kw),
+        "delta": pt.Delta([[-0.5, 0.0, 0.5], [1.0, -2.0, 1.0]], **kw),
+        "mlpg": pt.MLPG(frames, **kw),
+        "iir": pt.IIR(b=[1.0, 0.5], a=[1.0, -1.6, 0.8], **kw),
+        "biquad": pt.SecondOrderDigitalFilter(
+            16000, pole_frequency=1000, pole_bandwidth=200,
+            zero_frequency=3000, zero_bandwidth=300, **kw),
+        "dtw": dtw,
+        "dtw-path": lambda x, y: dtw(x, y, return_indices=True)[1][0],
+    })
+    return ops
+
+
+def ops_rest_inputs(torch, ops, xs, sp, mfcc, plp24) -> dict:
+    """Each module's inputs (a tuple), on ``xs``' device, from the
+    signal, [features]' power spectrum, MFCC and PLP-24 and the modules'
+    outputs: the DCT family on the log spectrum's first 256 bins, DTW
+    between rows 0 and 1 of PLP-24 (two sequences of 240 frames of order
+    24)."""
+    logsp = torch.log(sp[..., :256])
+    inputs = {name: (logsp,) for name in ("dct", "idct", "dst", "idst",
+                                          "dht", "idht", "wht")}
+    inputs.update({
+        "chroma": (sp,), "drc": (xs,), "alaw": (xs,),
+        "ialaw": (ops["alaw"](xs),), "ulaw": (xs,),
+        "iulaw": (ops["ulaw"](xs),), "quantize": (xs,),
+        "dequantize": (ops["quantize"](xs),), "delta": (mfcc,),
+        "mlpg": (ops["delta"](mfcc),), "iir": (xs,), "biquad": (xs,),
+        "dtw": (plp24[0], plp24[1]), "dtw-path": (plp24[0], plp24[1])})
+    return inputs
+
+
+def row0(name, args):
+    """A module's inputs cut to row 0 (DTW's are one pair already)."""
+    return args if name.startswith("dtw") else tuple(a[:1] for a in args)
+
+
+# [ops-rest]'s bars: max |card float32 - CPU float64| over max|CPU
+# float64| on row 0 of the same inputs.  Ten times a float32 CPU run's
+# reading, rounded up to a power of ten (the dequantizer's arithmetic is
+# exact: 0 on the CPU, bar 1e-6); the quantizer's floor may move a sample
+# by one of its 256 levels where x sits on a level's edge (0 on the CPU,
+# bar 1e-2).
+OPS_REST_BARS = {
+    "dct": 1e-5, "idct": 1e-5, "dst": 1e-5, "idst": 1e-5, "dht": 1e-5,
+    "idht": 1e-5, "wht": 1e-5, "chroma": 1e-5, "drc": 1e-5, "alaw": 1e-5,
+    "ialaw": 1e-5, "ulaw": 1e-5, "iulaw": 1e-5, "quantize": 1e-2,
+    "dequantize": 1e-6, "delta": 1e-6, "mlpg": 1e-5, "iir": 1e-5,
+    "biquad": 1e-4, "dtw": 1e-5}
+# The modules of [ops-rest] that read the card back by design: the hard
+# DTW path is backtracked on the host in numpy, as in the JAX package.
+OPS_REST_HOST_STEPS = ("dtw-path",)
+
+
+def run_ops_rest(torch, xs, sp, mfcc, plp24, card: str) -> None:
+    """[ops-rest]: every other module of this slice once on the card at
+    the flagship's shapes, float32, on the signal and [features]'
+    outputs: each against the port's float64 run on the CPU on row 0 of
+    the same inputs within its bar (OPS_REST_BARS); no module but
+    OPS_REST_HOST_STEPS reads the card back (set_sync_debug_mode("error")
+    around each call, after a first call); the DTW path runs from (0, 0)
+    to the last frames in the constraint's steps; each module's median time
+    (5 calls; DRC and DTW, host-bound loops, one call)."""
+    from diffsptk_tpu_torch.kernels import scan, solve
+
+    frames = sp.shape[-2]
+    ops = ops_rest_ops(torch, "cuda", torch.float32, frames)
+    ops64 = ops_rest_ops(torch, "cpu", torch.float64, frames)
+    on_card = [name for name in ops if name not in OPS_REST_HOST_STEPS]
+    with torch.no_grad():
+        inputs = ops_rest_inputs(torch, ops, xs, sp, mfcc, plp24)
+        for name in on_card:
+            ops[name](*inputs[name])
+        torch.cuda.synchronize()
+        scan.launches = solve.launches = 0
+        out, synced = {}, []
+        for name in on_card:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out[name] = ops[name](*inputs[name])
+            except RuntimeError as exc:
+                if "synchroniz" not in str(exc):
+                    raise
+                synced.append(name)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        check(not synced, f"[ops-rest] host reads in {synced}")
+        torch.cuda.synchronize()
+        kernel_launches = {"scan": scan.launches, "spd_solve": solve.launches}
+        ms = {}
+        for name in on_card:
+            once = name in ("drc", "dtw")
+            ms[name] = float(np.median(cuda_call_ms(
+                torch, lambda op=ops[name], a=inputs[name]: op(*a),
+                1 if once else 5, warm=0 if once else 1)))
+        for name in OPS_REST_HOST_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = ops[name](*inputs[name])
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        errs = {}
+        for name in on_card:
+            want = ops64[name](*(a.double().cpu()
+                                 for a in row0(name, inputs[name])))
+            got = out[name] if name == "dtw" else out[name][:1]
+            check(bool(torch.isfinite(out[name]).all()),
+                  f"[ops-rest] {name} is not finite")
+            errs[name] = rel_err(torch, got, want)
+            check(errs[name] <= OPS_REST_BARS[name],
+                  f"[ops-rest] {name} against float64 on the CPU: "
+                  f"{errs[name]:.3e} of max (bar {OPS_REST_BARS[name]})")
+        path = out["dtw-path"].cpu()
+        steps = {tuple(s) for s in (path[1:] - path[:-1]).tolist()}
+        path64 = ops64["dtw-path"](*(a.double().cpu()
+                                     for a in inputs["dtw-path"])).cpu()
+        last = (inputs["dtw"][0].shape[0] - 1, inputs["dtw"][1].shape[0] - 1)
+        check(tuple(path[0].tolist()) == (0, 0)
+              and tuple(path[-1].tolist()) == last
+              and steps <= {(1, 0), (0, 1), (1, 1)},
+              f"[ops-rest] the DTW path is not a path of constraint 4: "
+              f"from {path[0].tolist()} to {path[-1].tolist()}, steps "
+              f"{sorted(steps)}")
+        same = len({tuple(p) for p in path.tolist()}
+                   & {tuple(p) for p in path64.tolist()})
+    print(f"[ops-rest] B={xs.shape[0]} T={xs.shape[1]} (the DCT family at "
+          f"256 points on {frames} frames a row, DTW between two "
+          f"{frames}-frame order-24 PLP sequences), float32 against float64 on the CPU, "
+          f"row 0, of max|.|: "
+          + ", ".join(f"{k} {v:.3e} (bar {OPS_REST_BARS[k]})"
+                      for k, v in errs.items())
+          + f"; the DTW path {len(path)} cells from (0, 0) to {last}, "
+          f"{same} of them on the float64 path's {len(path64)}; kernel "
+          f"launches {kernel_launches} (none expected); no host read but in "
+          f"{list(OPS_REST_HOST_STEPS)} (not checked); median ms per call "
+          f"(5 calls; drc, dtw one call; {list(OPS_REST_HOST_STEPS)} one "
+          f"call, host clock): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" | {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3027,6 +3521,15 @@ def main() -> int:
     launches_mgc = run_mgc(torch, xw, card)
     report["newton_toephank"]["launches"] = launches_mgc["newton_toephank"]
     run_analysis_rest(torch, xw, card)
+
+    # 29.-32. the speech-feature front end (PLP-24 takes the SPD solve
+    #     kernel), gammatone (the scan kernel's complex entry), Griffin-Lim
+    #     and the slice's other signal ops
+    sp_w, feats = run_features(torch, xw, card)
+    run_gammatone(torch, xw, card)
+    run_griffin(torch, sp_w, xw.shape[-1], card)
+    run_ops_rest(torch, xw, sp_w, feats["mfcc"], feats["plp24"], card)
+    del sp_w, feats
 
     kernels = []
     meta = {

@@ -7,12 +7,20 @@ Each hand-written CUDA kernel (``csrc/``) has a plain torch twin beside it,
 which is what a CPU tensor runs.  The package never imports JAX.
 """
 
-from .core import BaseOp, Design
+from .core import BaseNonFunctionalOp, BaseOp, Design
 from .kernels.state import twins
 from .models.mcep_vocoder import MelCepstralVocoder
 from .models.world_vocoder import WorldVocoder
 from .ops.acorr import Autocorrelation
 from .ops.ap import Aperiodicity
+from .ops.companding import (
+    ALawCompression,
+    ALawExpansion,
+    InverseUniformQuantization,
+    MuLawCompression,
+    MuLawExpansion,
+    UniformQuantization,
+)
 from .ops.cep import (
     CepstralAnalysis,
     CepstralDistance,
@@ -22,12 +30,36 @@ from .ops.cep import (
     MinimumPhaseImpulseResponseToCepstrum,
     NegativeDerivativeOfPhaseSpectrumToCepstrum,
 )
+from .ops.chroma import ChromaFilterBankAnalysis
 from .ops.cqt import ConstantQTransform, InverseConstantQTransform
 from .ops.csm import (
     AutocorrelationToCompositeSinusoidalModelCoefficients,
     CompositeSinusoidalModelCoefficientsToAutocorrelation,
 )
+from .ops.dct import (
+    DiscreteCosineTransform,
+    DiscreteHartleyTransform,
+    DiscreteSineTransform,
+    InverseDiscreteCosineTransform,
+    InverseDiscreteHartleyTransform,
+    InverseDiscreteSineTransform,
+    InverseWalshHadamardTransform,
+    WalshHadamardTransform,
+)
+from .ops.delta import Delta, MaximumLikelihoodParameterGeneration
+from .ops.dfs import (
+    InfiniteImpulseResponseDigitalFilter,
+    SecondOrderDigitalFilter,
+)
+from .ops.drc import DynamicRangeCompression
+from .ops.dtw import DynamicTimeWarping
 from .ops.excite import ExcitationGeneration
+from .ops.fbank import (
+    InverseMelFilterBankAnalysis,
+    MelFilterBankAnalysis,
+    MelFrequencyCepstralCoefficientsAnalysis,
+    PerceptualLinearPredictiveCoefficientsAnalysis,
+)
 from .ops.fftr import (
     RealValuedFastFourierTransform,
     RealValuedInverseFastFourierTransform,
@@ -37,6 +69,10 @@ from .ops.freqt import FrequencyTransform
 from .ops.freqt2 import (
     SecondOrderAllPassFrequencyTransform,
     SecondOrderAllPassInverseFrequencyTransform,
+)
+from .ops.gammatone import (
+    GammatoneFilterBankAnalysis,
+    GammatoneFilterBankSynthesis,
 )
 from .ops.gnorm import (
     GeneralizedCepstrumGainNormalization,
@@ -79,6 +115,7 @@ from .ops.mglsadf import (
     PseudoInverseMGLSADigitalFilter,
     PseudoMGLSADigitalFilter,
 )
+from .ops.griffin import GriffinLim
 from .ops.pitch import Pitch
 from .ops.pitch_spec import PitchAdaptiveSpectralAnalysis
 from .ops.parcor import (
@@ -126,8 +163,26 @@ MDST = ModifiedDiscreteSineTransform
 IMDST = InverseModifiedDiscreteSineTransform
 PQMF = PseudoQuadratureMirrorFilterBankAnalysis
 IPQMF = PseudoQuadratureMirrorFilterBankSynthesis
+DCT = DiscreteCosineTransform
+IDCT = InverseDiscreteCosineTransform
+DST = DiscreteSineTransform
+IDST = InverseDiscreteSineTransform
+DHT = DiscreteHartleyTransform
+IDHT = InverseDiscreteHartleyTransform
+WHT = WalshHadamardTransform
+IWHT = InverseWalshHadamardTransform
+FBANK = MelFilterBankAnalysis
+IFBANK = InverseMelFilterBankAnalysis
+MFCC = MelFrequencyCepstralCoefficientsAnalysis
+PLP = PerceptualLinearPredictiveCoefficientsAnalysis
+DRC = DynamicRangeCompression
+DTW = DynamicTimeWarping
+IIR = InfiniteImpulseResponseDigitalFilter
+MLPG = MaximumLikelihoodParameterGeneration
 
 __all__ = [
+    "ALawCompression",
+    "ALawExpansion",
     "AllPoleDigitalFilter",
     "AllPoleToAllZeroDigitalFilterCoefficients",
     "AllZeroDigitalFilter",
@@ -135,6 +190,7 @@ __all__ = [
     "Aperiodicity",
     "Autocorrelation",
     "AutocorrelationToCompositeSinusoidalModelCoefficients",
+    "BaseNonFunctionalOp",
     "BaseOp",
     "CQT",
     "CepstralAnalysis",
@@ -142,31 +198,60 @@ __all__ = [
     "CepstrumToAutocorrelation",
     "CepstrumToMinimumPhaseImpulseResponse",
     "CepstrumToNegativeDerivativeOfPhaseSpectrum",
+    "ChromaFilterBankAnalysis",
     "CoefficientsFrequencyTransform",
     "CompositeSinusoidalModelCoefficientsToAutocorrelation",
     "ConstantQTransform",
+    "DCT",
+    "DHT",
+    "DRC",
+    "DST",
+    "DTW",
+    "Delta",
     "Design",
+    "DiscreteCosineTransform",
+    "DiscreteHartleyTransform",
+    "DiscreteSineTransform",
+    "DynamicRangeCompression",
+    "DynamicTimeWarping",
     "ExcitationGeneration",
+    "FBANK",
     "FFTR",
     "FractionalOctaveBandAnalysis",
     "Frame",
     "FrequencyTransform",
+    "GammatoneFilterBankAnalysis",
+    "GammatoneFilterBankSynthesis",
     "GeneralizedCepstrumGainNormalization",
     "GeneralizedCepstrumInverseGainNormalization",
+    "GriffinLim",
     "HilbertTransform",
     "ICQT",
+    "IDCT",
+    "IDHT",
+    "IDST",
+    "IFBANK",
     "IFFTR",
+    "IIR",
     "IMDCT",
     "IMDST",
     "IMLSA",
     "IPQMF",
     "ISTFT",
+    "IWHT",
+    "InfiniteImpulseResponseDigitalFilter",
     "InverseConstantQTransform",
+    "InverseDiscreteCosineTransform",
+    "InverseDiscreteHartleyTransform",
+    "InverseDiscreteSineTransform",
+    "InverseMelFilterBankAnalysis",
     "InverseModifiedDiscreteCosineTransform",
     "InverseModifiedDiscreteSineTransform",
     "InverseModifiedDiscreteTransform",
     "InverseShortTimeFourierTransform",
     "InverseSineToParcorCoefficients",
+    "InverseUniformQuantization",
+    "InverseWalshHadamardTransform",
     "LPC",
     "LevinsonDurbin",
     "LineSpectralPairsStabilityCheck",
@@ -180,15 +265,20 @@ __all__ = [
     "LogAreaRatioToParcorCoefficients",
     "MDCT",
     "MDST",
+    "MFCC",
+    "MLPG",
     "MLSA",
     "MLSADigitalFilterCoefficientsToMelCepstrum",
     "MLSADigitalFilterStabilityCheck",
+    "MaximumLikelihoodParameterGeneration",
     "MelCepstralAnalysis",
     "MelCepstralVocoder",
     "MelCepstrumInversePowerNormalization",
     "MelCepstrumPostfiltering",
     "MelCepstrumPowerNormalization",
     "MelCepstrumToMLSADigitalFilterCoefficients",
+    "MelFilterBankAnalysis",
+    "MelFrequencyCepstralCoefficientsAnalysis",
     "MelGeneralizedCepstralAnalysis",
     "MelGeneralizedCepstrumToMelGeneralizedCepstrum",
     "MelGeneralizedCepstrumToSpectrum",
@@ -196,11 +286,15 @@ __all__ = [
     "ModifiedDiscreteCosineTransform",
     "ModifiedDiscreteSineTransform",
     "ModifiedDiscreteTransform",
+    "MuLawCompression",
+    "MuLawExpansion",
     "NegativeDerivativeOfPhaseSpectrumToCepstrum",
+    "PLP",
     "PQMF",
     "ParcorCoefficientsToInverseSine",
     "ParcorCoefficientsToLinearPredictiveCoefficients",
     "ParcorCoefficientsToLogAreaRatio",
+    "PerceptualLinearPredictiveCoefficientsAnalysis",
     "Pitch",
     "PitchAdaptiveSpectralAnalysis",
     "PolynomialToRoots",
@@ -216,9 +310,13 @@ __all__ = [
     "SecondOrderAllPassFrequencyTransform",
     "SecondOrderAllPassInverseFrequencyTransform",
     "SecondOrderAllPassMelCepstralAnalysis",
+    "SecondOrderDigitalFilter",
     "ShortTimeFourierTransform",
     "Spectrum",
     "Unframe",
+    "UniformQuantization",
+    "WHT",
+    "WalshHadamardTransform",
     "Window",
     "WorldSynthesis",
     "WorldVocoder",

@@ -163,3 +163,8 @@ class BaseOp(nn.Module):
     @staticmethod
     def _forward(*args, **kwargs):
         raise NotImplementedError
+
+
+class BaseNonFunctionalOp(BaseOp):
+    """Marker: an operator with no stateless functional form (the JAX
+    package's ``BaseNonFunctionalOp``, ``diffsptk_tpu/core.py:221``)."""

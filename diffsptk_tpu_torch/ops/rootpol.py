@@ -3,13 +3,10 @@
 
 ``method="aberth"`` (the default) is a batched Aberth-Ehrlich
 simultaneous iteration: elementwise complex arithmetic, 64 fixed steps,
-no host read.  ``method="eig"`` takes the eigenvalues of the companion
-matrix with ``torch.linalg.eigvals`` on the tensor's own device (the JAX
-package runs numpy's on the host through a callback); for a CUDA tensor
-torch runs MAGMA's geev, which works on the host, so this reads the card
-back (15.3 s for 7,680 polynomials of order 24 on an H100: chip_smoke.py
-[analysis-rest]).  Roots are unordered in both.  RootsToPolynomial is a
-cascade of first-order convolutions.
+no host read.  ``method="eig"`` is a host step by definition, as in the
+JAX package: the eigenvalues of the companion matrices, computed by
+LAPACK on the host (``eig_roots``).  Roots are unordered in both.
+RootsToPolynomial is a cascade of first-order convolutions.
 """
 
 from __future__ import annotations
@@ -65,16 +62,30 @@ def aberth_roots(a: torch.Tensor, n_iter: int = 64) -> torch.Tensor:
 
 
 def eig_roots(a: torch.Tensor) -> torch.Tensor:
-    """Roots as the eigenvalues of each polynomial's companion matrix."""
+    """Roots as the eigenvalues of each polynomial's companion matrix.
+
+    A stated host step, once per batch: the JAX package runs this method
+    on the host by design (``jax.pure_callback`` into numpy's eig,
+    ``diffsptk_tpu/ops/rootpol.py:8-10, 142``), since a small
+    nonsymmetric eigensolve has no device path there.  Here too the whole
+    batch moves to the host in one copy, all companion eigenvalues come
+    from one batched LAPACK call, and the roots return to the input's
+    device in its complex dtype.  A real input's companions stay real
+    float64 (LAPACK's real eigensolver, a third of the time of the
+    complex one that the reference's callback runs on the same values),
+    a complex input's are complex128.  ``torch.linalg.eigvals``
+    of a CUDA tensor would also run on the host (MAGMA's geev), but one
+    matrix at a time with a hidden round trip for each.
+    """
     cdtype = _complex_dtype(a.dtype)
-    a = a.to(cdtype)
-    M = a.shape[-1] - 1
-    companion = torch.zeros(a.shape[:-1] + (M, M), dtype=cdtype,
-                            device=a.device)
-    companion[..., 0, :] = -a[..., 1:] / a[..., :1]
-    companion[..., 1:, :-1] = torch.eye(M - 1, dtype=cdtype,
-                                        device=a.device)
-    return torch.linalg.eigvals(companion)
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    c = a.to(device="cpu", dtype=wide)
+    M = c.shape[-1] - 1
+    companion = torch.zeros(c.shape[:-1] + (M, M), dtype=wide)
+    companion[..., 0, :] = -c[..., 1:] / c[..., :1]
+    companion[..., 1:, :-1] = torch.eye(M - 1, dtype=wide)
+    return torch.linalg.eigvals(companion).to(device=a.device,
+                                              dtype=cdtype)
 
 
 class PolynomialToRoots(BaseOp):

@@ -3,8 +3,11 @@
 ``params`` is a flat dict of numpy arrays named by the JAX object's
 attribute path -- for example ``"mlsa.mglsadf.a"`` and
 ``"imlsa.mglsadf.mglsadf.a"`` for the Taylor weights of a
-``MelCepstralVocoder``, or ``"stft.spec.fftr.W"`` for a learnable DFT.  The
-port module keeps the same paths for its parameters and buffers.
+``MelCepstralVocoder``, ``"stft.spec.fftr.W"`` for a learnable DFT,
+``"fbank.H"`` for the filterbank weights of an ``MFCC`` or ``PLP`` built
+with ``learnable=True`` (``"H"`` of an ``FBANK`` or ``IFBANK``), or
+``"params"`` for a learnable ``DRC``.  The port module keeps the same
+paths for its parameters and buffers.
 """
 
 from __future__ import annotations

@@ -45,6 +45,16 @@ def remove_gain(a: torch.Tensor, value: float = 1.0,
     return monic
 
 
+def plateau(length: int, first: float, middle: float,
+            last: float | None = None, dtype=None) -> np.ndarray:
+    """Host-side constant: [first, middle, ..., middle(, last)]."""
+    x = np.full(length, middle, dtype=dtype or np.float64)
+    x[0] = first
+    if last is not None:
+        x[-1] = last
+    return x
+
+
 # Above this order the unrolled batch-minor form costs more than the
 # masked sweeps (the same crossover the JAX package uses).
 _SPD_UNROLL_MAX = 12

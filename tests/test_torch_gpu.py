@@ -26,6 +26,10 @@ filterbanks (no kernel of their own) float32 on the card against the
 port's float64 on the CPU: CQT and ICQT within 1e-3 of max, the others
 1e-4; mc2b, b2mc, mgc2sp and Hilbert 1e-5, the all-zero filter's FFT
 path 1e-5; the vocoder's modes within the flagship's 1e-2 of max|y|.
+The speech-feature front end, gammatone and the small signal ops float32
+on the card against float64 on the CPU within chip_smoke.py's bars
+(FEATURE_BARS, GAMMATONE_BARS, OPS_REST_BARS); the eig roots equal to
+the CPU's (one host computation).
 """
 
 from __future__ import annotations
@@ -35,7 +39,18 @@ import pytest
 import torch
 
 import diffsptk_tpu_torch as pt
-from chip_smoke import synth_speech
+from chip_smoke import (
+    FEATURE_BARS,
+    GAMMATONE_BARS,
+    OPS_REST_BARS,
+    OPS_REST_HOST_STEPS,
+    feature_ops,
+    ops_rest_inputs,
+    ops_rest_ops,
+    power_spectrum,
+    row0,
+    synth_speech,
+)
 from diffsptk_tpu_torch.kernels import (
     gather,
     mlsa,
@@ -988,3 +1003,119 @@ def test_zerodf_fft_path_on_the_card_matches_the_cpu(cuda):
                                   dtype=torch.float64)
     got = f(x.float().to(cuda), b.float().to(cuda))
     assert _rel(got, f64(x, b)) <= 1e-5
+
+
+def test_plp24_takes_the_solve_kernel_once(cuda):
+    """PLP at order 24 over 9 x 240 frames (above the kernel's gate of
+    2,048) launches the SPD solve kernel once, twice with its backward,
+    and agrees with float64 on the CPU."""
+    sp = power_spectrum(torch, torch.as_tensor(synth_speech(9, 19200),
+                                               device=cuda))
+    op, op64 = (feature_ops(torch, dev, dt)["plp24"] for dev, dt in (
+        (cuda, torch.float32), ("cpu", torch.float64)))
+    solve.launches = 0
+    with torch.no_grad():
+        y = op(sp)
+    torch.cuda.synchronize()
+    assert solve.launches == 1
+    assert _rel(y, op64(sp.double().cpu())) <= FEATURE_BARS["plp24"]
+    spg = sp.clone().requires_grad_(True)
+    solve.launches = 0
+    op(spg).sum().backward()
+    torch.cuda.synchronize()
+    assert solve.launches == 2 and torch.isfinite(spg.grad).all()
+
+
+@pytest.mark.parametrize("name", ["mfcc", "plp"])
+def test_features_on_the_card_match_the_cpu(cuda, name):
+    sp = power_spectrum(torch, torch.as_tensor(synth_speech(2, 19200),
+                                               device=cuda))
+    op, op64 = (feature_ops(torch, dev, dt)[name] for dev, dt in (
+        (cuda, torch.float32), ("cpu", torch.float64)))
+    with torch.no_grad():
+        assert _rel(op(sp), op64(sp.double().cpu())) <= FEATURE_BARS[name]
+
+
+def test_gammatone_takes_the_complex_scan_four_times(cuda):
+    x = torch.as_tensor(synth_speech(2, 19200))
+    kw = dict(device=cuda, dtype=torch.float32)
+    ana = pt.GammatoneFilterBankAnalysis(16000, **kw)
+    syn = pt.GammatoneFilterBankSynthesis(16000, **kw)
+    dtypes = []
+    orig = scan.first_order_scan
+
+    def spy(p, xs):
+        dtypes.append(xs.dtype)
+        return orig(p, xs)
+
+    scan.first_order_scan = spy
+    try:
+        scan.launches = 0
+        with torch.no_grad():
+            sub = ana(x.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        scan.first_order_scan = orig
+    assert scan.launches == 4 and dtypes == [torch.complex64] * 4
+    ana64 = pt.GammatoneFilterBankAnalysis(16000, device="cpu",
+                                           dtype=torch.float64)
+    syn64 = pt.GammatoneFilterBankSynthesis(16000, device="cpu",
+                                            dtype=torch.float64)
+    sub64 = ana64(x.double())
+    with torch.no_grad():
+        assert _rel(sub, sub64) <= GAMMATONE_BARS["analysis"]
+        assert _rel(syn(sub), syn64(sub64)) <= GAMMATONE_BARS["synthesis"]
+
+
+def test_eig_roots_on_the_card_equal_the_cpu(cuda):
+    """The eig roots of a CUDA batch come back on the card, equal to the
+    CPU's: both are the same host computation."""
+    a = torch.as_tensor(np.random.default_rng(8).standard_normal((64, 25)),
+                        dtype=torch.float32)
+    op = pt.PolynomialToRoots(24, method="eig", device=cuda,
+                              dtype=torch.float32)
+    got = op(a.to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.complex64
+    want = pt.PolynomialToRoots(24, method="eig", device="cpu",
+                                dtype=torch.float32)(a)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.fixture(scope="module")
+def ops_rest_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs = torch.as_tensor(synth_speech(2, 19200), device="cuda")
+    with torch.no_grad():
+        sp = power_spectrum(torch, xs)
+        feats = feature_ops(torch, "cuda", torch.float32)
+        mfcc, plp24 = feats["mfcc"](sp), feats["plp24"](sp)
+        ops = ops_rest_ops(torch, "cuda", torch.float32, sp.shape[-2])
+        inputs = ops_rest_inputs(torch, ops, xs, sp, mfcc, plp24)
+    return ops, inputs, sp.shape[-2]
+
+
+@pytest.mark.parametrize("name", sorted(OPS_REST_BARS))
+def test_ops_rest_on_the_card_match_the_cpu(ops_rest_case, name):
+    """Each small signal op float32 on the card against float64 on the
+    CPU, row 0, with no host read."""
+    ops, inputs, frames = ops_rest_case
+    op64 = ops_rest_ops(torch, "cpu", torch.float64, frames)[name]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got = ops[name](*inputs[name])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = op64(*(a.double().cpu() for a in row0(name, inputs[name])))
+    got = got if name == "dtw" else got[:1]
+    assert _rel(got, want) <= OPS_REST_BARS[name]
+
+
+def test_dtw_path_is_the_stated_host_step(ops_rest_case):
+    ops, inputs, frames = ops_rest_case
+    assert OPS_REST_HOST_STEPS == ("dtw-path",)
+    path = ops["dtw-path"](*inputs["dtw-path"])
+    assert path.device.type == "cuda"
+    assert path[0].tolist() == [0, 0]
+    assert path[-1].tolist() == [frames - 1, frames - 1]

@@ -59,6 +59,15 @@ def test_imports_with_jax_blocked():
             "w = pt.LinearPredictiveCoefficientsToLineSpectralPairs(\n"
             "    4, device='cpu')(a)\n"
             "assert g.shape == (2, 5) and w.shape == (2, 5)\n"
+            "sp = torch.rand(2, 257) + 0.1\n"
+            "m = pt.MFCC(fft_length=512, mfcc_order=12, n_channel=20,\n"
+            "    sample_rate=16000, device='cpu')(sp)\n"
+            "p = pt.PLP(fft_length=512, plp_order=24, n_channel=40,\n"
+            "    sample_rate=16000, device='cpu')(sp)\n"
+            "s = pt.GammatoneFilterBankAnalysis(16000, device='cpu')(\n"
+            "    torch.randn(2, 400))\n"
+            "assert m.shape == (2, 12) and p.shape == (2, 24)\n"
+            "assert s.shape == (2, 30, 400) and s.is_complex()\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -262,3 +262,73 @@ def test_mgc_chain_inverts_its_filter():
     assert mgc.shape == (1, 20, 25) and y.shape == x.shape
     snr = 10 * torch.log10((x ** 2).sum() / ((y - x) ** 2).sum())
     assert float(snr) > 15.0
+
+
+@pytest.fixture(scope="module")
+def speech_row():
+    """Row 0 of the smoke's signal and its power spectrum, float32."""
+    xs = torch.as_tensor(chip_smoke.synth_speech(1, 19200))
+    return xs, chip_smoke.power_spectrum(torch, xs)
+
+
+def _rel(got, want):
+    got = got.to(want.dtype)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_feature_and_gammatone_bars_hold_on_the_cpu(speech_row):
+    """The CPU float32 readings that FEATURE_BARS and GAMMATONE_BARS are
+    ten times (rounded up), against float64 on the same inputs."""
+    import diffsptk_tpu_torch as pt
+
+    xs, sp = speech_row
+    ops = chip_smoke.feature_ops(torch, "cpu", torch.float32)
+    ops64 = chip_smoke.feature_ops(torch, "cpu", torch.float64)
+    for name, bar in chip_smoke.FEATURE_BARS.items():
+        assert _rel(ops[name](sp), ops64[name](sp.double())) <= bar / 10
+    f32 = dict(device="cpu", dtype=torch.float32)
+    f64 = dict(device="cpu", dtype=torch.float64)
+    sub = pt.GammatoneFilterBankAnalysis(16000, **f32)(xs)
+    sub64 = pt.GammatoneFilterBankAnalysis(16000, **f64)(xs.double())
+    y = pt.GammatoneFilterBankSynthesis(16000, **f32)(sub)
+    y64 = pt.GammatoneFilterBankSynthesis(16000, **f64)(sub64)
+    bars = chip_smoke.GAMMATONE_BARS
+    assert _rel(sub, sub64) <= bars["analysis"] / 10
+    assert _rel(y, y64) <= bars["synthesis"] / 10
+    inner = slice(800, 19200 - 800)
+    assert chip_smoke.snr_db(torch, xs[:, inner],
+                             y[:, 0, inner]) > chip_smoke.GAMMATONE_SNR
+
+
+def test_ops_rest_bars_hold_on_the_cpu(speech_row):
+    """Each [ops-rest] module's CPU float32 reading against float64 on the
+    same inputs lies within a tenth of its bar (within the bar for the
+    quantizer and the exact dequantizer, whose readings are 0), and
+    every module has a bar but the named host step."""
+    xs, sp = speech_row
+    feats = chip_smoke.feature_ops(torch, "cpu", torch.float32)
+    frames = sp.shape[-2]
+    ops = chip_smoke.ops_rest_ops(torch, "cpu", torch.float32, frames)
+    ops64 = chip_smoke.ops_rest_ops(torch, "cpu", torch.float64, frames)
+    plp = feats["plp24"](torch.cat((sp, sp.flip(-2))))
+    inputs = chip_smoke.ops_rest_inputs(torch, ops, xs, sp,
+                                        feats["mfcc"](sp), plp)
+    assert set(ops) - set(chip_smoke.OPS_REST_BARS) == set(
+        chip_smoke.OPS_REST_HOST_STEPS)
+    for name, bar in chip_smoke.OPS_REST_BARS.items():
+        args = chip_smoke.row0(name, inputs[name])
+        got = ops[name](*args)
+        want = ops64[name](*(a.double() for a in args))
+        exact = name in ("quantize", "dequantize")
+        assert _rel(got, want) <= (bar if exact else bar / 10), name
+
+
+def test_spectral_convergence_of_the_signal_itself():
+    import diffsptk_tpu_torch as pt
+
+    xs = torch.as_tensor(chip_smoke.synth_speech(1, 3200), dtype=torch.float64)
+    stft = pt.STFT(400, 80, 512, out_format="complex", device="cpu",
+                   dtype=torch.float64)
+    s = stft(xs).abs()
+    assert chip_smoke.spectral_convergence(torch, stft, s, xs) < 1e-12
+    assert chip_smoke.spectral_convergence(torch, stft, s, 0 * xs) == 1.0
