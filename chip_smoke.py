@@ -160,6 +160,24 @@ Phases (each prints one line; any failure exits non-zero):
                the IIR and second-order filters and DTW once each at the
                flagship's shapes against float64 on the CPU, with no
                host read but DTW's stated host backtrack;
+ 33. learners -- VQ and two-stage VQ (codebook 256), the GMM (order 49, 32
+               mixtures, full covariance in 25 x 25 blocks, LBG warm start,
+               20 EM steps, regression), LBG (256 codewords in chunks of
+               7,680 frames, twice, and float64 on the same draws), PCA,
+               ICA of four mixed sources and NMF (64 components) on 76,800
+               mel-cepstra of synthetic speech (ten flagship calls) and a
+               power spectrum: float32 against float64 (LEARNER_BARS), the
+               LBG's two runs taking the same decisions, the host reads of
+               each fit against the stated ones, ms a step, busy shares;
+ 34. misc   -- the 15 misc modules once each at the flagship's shapes, no
+               host read, row 0 against float64 on the CPU (MISC_BARS);
+ 35. functional -- the 100 stateless functions once each on small inputs,
+               no host read, each equal to its class path; then mcep and
+               smcep (the Newton kernel 10 launches a call), PLP-24,
+               levdur and LPC at order 24 (the SPD solve kernel once) at
+               the flagship's 32 x 240 frames;
+ 36. io     -- a wav and a checkpoint round trip, Throughput of the
+               flagship call and a profiler trace;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -3144,6 +3162,794 @@ def run_ops_rest(torch, xs, sp, mfcc, plp24, card: str) -> None:
           + f" | {card}", flush=True)
 
 
+
+# --- [learners], [misc], [functional], [io] ---------------------------------
+
+class HostReads:
+    """Counts the card's synchronising calls in a block: torch's sync
+    debug mode warns at each (a read back to the host, a blocking copy),
+    and the warnings are counted.  On the CPU it counts nothing
+    (``count`` stays None).  ``where`` lists the lines that read."""
+
+    def __init__(self, torch, device) -> None:
+        self.torch = torch
+        self.on_card = torch.device(device).type == "cuda"
+        self.count, self.where = None, []
+
+    def __enter__(self):
+        import warnings
+
+        if self.on_card:
+            self._caught = warnings.catch_warnings(record=True)
+            self._log = self._caught.__enter__()
+            warnings.simplefilter("always")
+            self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        if self.on_card:
+            self.torch.cuda.set_sync_debug_mode("default")
+            self._caught.__exit__(*exc)
+            syncs = [w for w in self._log
+                     if "called a synchronizing" in str(w.message)]
+            self.count = len(syncs)
+            self.where = sorted({f"{w.filename.rsplit('/', 1)[-1]}:"
+                                 f"{w.lineno}" for w in syncs})
+        return False
+
+
+def timed_reads(torch, fn, device) -> tuple[float, object, HostReads]:
+    """Host-clock ms of one call of ``fn`` until the card has finished, its
+    result, and the ``HostReads`` of the call (the closing synchronize is
+    not counted)."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with HostReads(torch, device) as hr:
+        out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out, hr
+
+
+def learner_data(torch, B: int, T: int, device) -> dict:
+    """[learners]' data: ``synth_speech(B, T)`` (rows of the flagship's
+    19,200 samples), its mel-cepstra (order 24, alpha 0.42, 10 Newton
+    steps, 240 frames a row) and those of a second rendering of it (the
+    same signal in white noise at about 30 dB, whose spectral valleys
+    fill: a frame-wise, nonlinear relation, as a target speaker's to a
+    source's), the power spectrum of its first 32 rows (240 frames a row,
+    257 bins), and four sources of 32 x 19,200 samples each (rows of
+    ``synth_speech``) mixed by a fixed 4 x 4 matrix."""
+    import diffsptk_tpu_torch as pt
+
+    xs = torch.as_tensor(synth_speech(B, T), device=device)
+    noise = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (B, T)).astype(np.float32), device=device)
+    voc = pt.MelCepstralVocoder(cascade="fused", device=device,
+                                dtype=torch.float32)
+    frames = T // 80
+    mx, my = [], []
+    with torch.no_grad():
+        for i in range(0, B, 32):
+            x = xs[i:i + 32]
+            mx.append(voc.analyze(x)[:, :frames])
+            my.append(voc.analyze(x + 5e-3 * noise[i:i + 32])[:, :frames])
+        sp = power_spectrum(torch, xs[:32])[:, :frames]
+    L = mx[0].shape[-1]
+    n_src = min(32 * T, 614_400)
+    src = torch.as_tensor(synth_speech(4, n_src).T.copy(), device=device)
+    mixing = torch.as_tensor(np.array(
+        [[1.0, 0.6, 0.3, 0.2], [0.4, 1.0, 0.5, 0.1], [0.2, 0.3, 1.0, 0.6],
+         [0.5, 0.1, 0.4, 1.0]], np.float32), device=device)
+    return {"mc_x": torch.cat(mx).reshape(-1, L),
+            "mc_y": torch.cat(my).reshape(-1, L),
+            "sp": sp.reshape(-1, sp.shape[-1]).contiguous(),
+            "sources": src, "mixed": src @ mixing.T}
+
+
+# [learners]' bars: the float32 card run against float64.  The GMM's final
+# log-likelihood per frame against the float64 card run from the same
+# initialisation; the LBG's final codebook's mean distance on the card
+# against the same codebook's recomputed in float64 (a float64 run from the same draws
+# parts from the float32 one at the first assignment that flips: on the
+# CPU at 7,680 frames their distances differed by up to 8.3e-3 on the
+# way and 6.5e-4 to 1.1e-3 at the end, so that difference is printed, not
+# held); the PCA's eigenvalues against the float64 card run's, relative
+# to the largest (the smallest of order-24 mel-cepstra are four orders
+# of magnitude below it).
+LEARNER_BARS = {"gmm": 1e-3, "lbg": 1e-3, "pca": 1e-4}
+LEARNER_ITERS = {"gmm": 20, "gmm-warmup": 20, "lbg": 20, "ica": 100,
+                 "nmf": 50}
+
+
+def learner_ops(torch, device, dtype) -> dict:
+    """[learners]' learners, fresh: VQ and two-stage VQ (codebook 256,
+    order 24), GMM (order 49, 32 mixtures, full covariance in blocks of
+    25, voice conversion's joint vectors), LBG (order 24, codebook 256,
+    streamed in chunks of 7,680 frames), PCA (order 24, every component),
+    ICA (4 sources) and NMF (a power spectrum's 257 bins, 64 components)."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "vq": lambda: pt.VectorQuantization(24, 256, **kw),
+        "msvq": lambda: pt.MultiStageVectorQuantization(24, 256, 2, **kw),
+        "gmm": lambda: pt.GMM(49, 32, n_iter=LEARNER_ITERS["gmm"], eps=0,
+                              var_type="full", block_size=[25, 25], **kw),
+        "lbg": lambda: pt.LBG(24, 256, n_iter=LEARNER_ITERS["lbg"],
+                              batch_size=7680, **kw),
+        "pca": lambda: pt.PCA(24, 25, **kw),
+        "ica": lambda: pt.ICA(3, 4, n_iter=LEARNER_ITERS["ica"], **kw),
+        "nmf": lambda n_data: pt.NMF(n_data, 256, 64,
+                                     n_iter=LEARNER_ITERS["nmf"], eps=0,
+                                     **kw),
+    }
+
+
+class DrawTape:
+    """Records an LBG's random draws, then replays them to another LBG
+    (cast to its dtype): the float64 run starts from the float32 run's
+    perturbations.  A draw of another shape than the tape's next is drawn
+    afresh and counted in ``fresh``."""
+
+    def __init__(self) -> None:
+        self.draws, self.fresh, self._next = [], 0, 0
+
+    def record(self, lbg) -> None:
+        draw = lbg._rand
+
+        def rand(shape, dtype):
+            r = draw(shape, dtype)
+            self.draws.append(r)
+            return r
+
+        lbg._rand = rand
+
+    def replay(self, lbg) -> None:
+        draw = lbg._rand
+
+        def rand(shape, dtype):
+            if (self._next < len(self.draws)
+                    and tuple(self.draws[self._next].shape) == tuple(shape)):
+                self._next += 1
+                return self.draws[self._next - 1].to(dtype)
+            self.fresh += 1
+            return draw(shape, dtype)
+
+        lbg._rand = rand
+
+
+def lbg_fit(torch, lbg, x):
+    """One LBG fit with its codebook-size trajectory (one entry an
+    iteration)."""
+    sizes = []
+
+    def cb(codebook_size, **kw):
+        sizes.append(codebook_size)
+
+    cb_, idx, dist = lbg(x, return_indices=True, callback=cb)
+    return cb_, idx, float(dist), sizes
+
+
+def run_learners(torch, data, card: str, device="cuda") -> dict:
+    """[learners]: the learners at the width users run, float32 on the
+    card: VQ and two-stage VQ on 76,800 mel-cepstra; the GMM on the
+    centred joint vectors, warm-started by its LBG (clusters of fewer than
+    100 frames re-seeded), fitted (20 EM steps) and its regression of the
+    second rendering's mel-cepstra from the first's; LBG to 256 codewords twice
+    (the indices and the codebook-size trajectory equal) and once in
+    float64 from the same draws; PCA; ICA of four mixed sources (each
+    recovered component correlates with one source above 0.9); NMF of a
+    power spectrum (the divergence falls).  Float32 against float64 from
+    one initialisation within LEARNER_BARS; the host reads of each fit
+    counted against its docstring's stated reads; ms per iteration and the
+    busy share of one fit.  Returns the GMM's parameters, which [io]
+    checkpoints."""
+    ops = learner_ops(torch, device, torch.float32)
+    ops64 = learner_ops(torch, device, torch.float64)
+    mc_x = data["mc_x"]
+    # Voice conversion's joint vectors, centred over the frames as its
+    # front ends normalise them: raw float32 second moments of uncentred
+    # mel-cepstra lose a component's positive definiteness within 20 EM
+    # steps (on the CPU at 7,680 frames), in either package's formula.
+    joint = torch.cat([mc_x, data["mc_y"]], -1)
+    joint = (joint - joint.mean(0)).contiguous()
+    jx, jy = joint[:, :25], joint[:, 25:]
+    n = mc_x.shape[0]
+    res, reads, ms, busy = {}, {}, {}, {}
+
+    # VQ and MSVQ: the distance GEMM and argmin; no host read
+    with torch.no_grad():
+        vq, msvq = ops["vq"](), ops["msvq"]()
+        for name, op in (("vq", vq), ("msvq", msvq)):
+            op(mc_x)
+            ms[name], (xq, idx, loss), reads[name] = timed_reads(
+                torch, lambda: op(mc_x), device)
+            check(bool(torch.isfinite(xq).all()) and idx.shape[0] == n,
+                  f"[learners] {name} output is not finite")
+        err_vq = float(loss)
+
+    # GMM: warm start, fit, regression
+    gmm = ops["gmm"]()
+    t_warm, _, reads["gmm-warmup"] = timed_reads(torch, lambda: gmm.warmup(
+        joint, n_iter=LEARNER_ITERS["gmm-warmup"],
+        min_data_per_cluster=100), device)
+    init = tuple(p.clone() for p in (gmm.w, gmm.mu, gmm.sigma))
+    t, ((w, mu, sigma), ll), reads["gmm"] = timed_reads(
+        torch, lambda: gmm(joint), device)
+    ms["gmm"] = t / LEARNER_ITERS["gmm"]
+    gmm64 = ops64["gmm"]()
+    gmm64.set_params(tuple(p.double() for p in init))
+    (_, _, _), ll64 = gmm64(joint.double())
+    res["gmm"] = abs(float(ll) - float(ll64)) / abs(float(ll64))
+    E, _, _ = gmm.transform(jx)
+    rmse_reg = float(torch.sqrt(((E - jy) ** 2).mean()))
+    rmse_id = float(torch.sqrt(((jx - jy) ** 2).mean()))
+    check(bool(torch.isfinite(E).all()) and rmse_reg < rmse_id,
+          f"[learners] the GMM's regression: rmse {rmse_reg:.4f} against "
+          f"{rmse_id:.4f} without it")
+
+    def gmm_fit():
+        gmm.set_params(init)
+        gmm(joint)
+
+    b, _, _, _, wall = profile_chain(torch, gmm_fit, calls=1) \
+        if device == "cuda" else (0.0, 0, 0, 0, 1.0)
+    busy["gmm"] = (b, wall)
+    params = {"w": w, "mu": mu, "sigma": sigma}
+
+    # LBG: two float32 runs, one float64 run on the first's draws
+    tape = DrawTape()
+    lbg = ops["lbg"]()
+    tape.record(lbg)
+    t, (cb1, idx1, d1, sizes1), reads["lbg"] = timed_reads(
+        torch, lambda: lbg_fit(torch, lbg, mc_x), device)
+    ms["lbg"] = t / len(sizes1)
+    cb2, idx2, d2, sizes2 = lbg_fit(torch, ops["lbg"](), mc_x)
+    check(sizes1 == sizes2 and bool(torch.equal(idx1, idx2)),
+          "[lbg] two runs on the card took different decisions: "
+          f"{len(sizes1)} and {len(sizes2)} iterations, "
+          f"{int((idx1 != idx2).sum())} indices differ")
+    same_cb = bool(torch.equal(cb1, cb2))
+    lbg64 = ops64["lbg"]()
+    tape.replay(lbg64)
+    _, _, d64, sizes64 = lbg_fit(torch, lbg64, mc_x.double())
+    # the final codebook's mean distance in float32 on the card (its
+    # returned indices) against the same codebook's in float64: the run's
+    # arithmetic, apart from where its path parts from float64's
+    with torch.no_grad():
+        d_32 = float(((mc_x - cb1[idx1]) ** 2).sum(-1).mean())
+        x64, cb64 = mc_x.double(), cb1.double()
+        d_cb = float(((x64 - cb64[torch.cdist(x64, cb64).argmin(-1)]) ** 2)
+                     .sum(-1).mean())
+    res["lbg"] = abs(d_32 - d_cb) / d_cb
+    part = abs(d1 - d64) / d64
+    b, _, _, _, wall = profile_chain(
+        torch, lambda: ops["lbg"]()(mc_x), calls=1) \
+        if device == "cuda" else (0.0, 0, 0, 0, 1.0)
+    busy["lbg"] = (b, wall)
+
+    # PCA
+    pca = ops["pca"]()
+    pca(mc_x)                      # the first eigensolver call sets up
+    ms["pca"], (s32, _, _), reads["pca"] = timed_reads(
+        torch, lambda: pca(mc_x), device)
+    s64, _, _ = ops64["pca"]()(mc_x.double())
+    res["pca"] = float((s32.double() - s64).abs().max() / s64.abs().max())
+
+    # ICA
+    ica = ops["ica"]()
+    iters = []
+    t, _, reads["ica"] = timed_reads(torch, lambda: ica(
+        data["mixed"], callback=lambda iteration, **kw:
+        iters.append(iteration)), device)
+    ms["ica"] = t / len(iters)
+    rec = ica.transform(data["mixed"]).double()
+    src = data["sources"].double()
+    rec = (rec - rec.mean(0)) / rec.std(0)
+    src = (src - src.mean(0)) / src.std(0)
+    corr = (rec.T @ src / rec.shape[0]).abs()
+    sep = float(corr.max(dim=1).values.min())
+    check(sep > 0.9, f"[learners] ICA: a component correlates {sep:.3f} "
+          "at most with any source (bar 0.9)")
+
+    # NMF
+    sp = data["sp"]
+    nmf = ops["nmf"](sp.shape[0])
+    divs = []
+    t, _, reads["nmf"] = timed_reads(torch, lambda: nmf(
+        sp, callback=lambda divergence, **kw: divs.append(divergence)),
+        device)
+    ms["nmf"] = t / len(divs)
+    check(all(np.isfinite(divs)) and divs[-1] < divs[0],
+          f"[learners] NMF's divergence went {divs[0]:.4e} -> "
+          f"{divs[-1]:.4e}")
+    b, _, _, _, wall = profile_chain(
+        torch, lambda: ops["nmf"](sp.shape[0])(sp), calls=1) \
+        if device == "cuda" else (0.0, 0, 0, 0, 1.0)
+    busy["nmf"] = (b, wall)
+
+    # the stated host reads (each class' docstring)
+    stated = {"vq": 0, "msvq": 0, "gmm": LEARNER_ITERS["gmm"],
+              "pca": 1, "ica": 2 + 2 * len(iters), "nmf": 1 + len(divs)}
+    sites = {k: hr.where for k, hr in reads.items() if hr.where}
+    reads = {k: hr.count for k, hr in reads.items()}
+    failed = [f"{name} float32 against float64: {res[name]:.3e} (bar "
+              f"{bar})" for name, bar in LEARNER_BARS.items()
+              if not res[name] <= bar]
+    starved = None
+    if device == "cuda":
+        failed += [f"{name} read the card back {reads[name]} times, stated "
+                   f"{count}" for name, count in stated.items()
+                   if reads[name] > count]
+        extra = reads["lbg"] - len(sizes1)
+        if extra < 0 or extra % 2:
+            failed.append(f"LBG read the card back {reads['lbg']} times in "
+                          f"{len(sizes1)} iterations")
+        starved = extra // 2
+    print(f"[learners] {n} frames (ten flagship calls), float32 on the "
+          f"card: GMM (order 49, 32 mixtures, full in 25 x 25 blocks, "
+          f"{LEARNER_ITERS['gmm']} EM steps) log-likelihood per frame "
+          f"{float(ll) / n:.5f}, against float64 {res['gmm']:.3e} (bar "
+          f"{LEARNER_BARS['gmm']}), regression rmse {rmse_reg:.4f} (without "
+          f"it {rmse_id:.4f}); LBG (256, chunks of 7,680) {len(sizes1)} "
+          f"iterations, final distance {d_32:.5f}, against its codebook's in float64 "
+          f"{res['lbg']:.3e} (bar {LEARNER_BARS['lbg']}), a float64 run on "
+          f"the same draws ends {part:.3e} away ({len(sizes64)} iterations, "
+          f"{tape.fresh} draws afresh), two runs: "
+          f"indices and trajectory equal, codebooks "
+          f"{'equal' if same_cb else 'differ'}; PCA eigenvalues against "
+          f"float64 {res['pca']:.3e} of the largest (bar "
+          f"{LEARNER_BARS['pca']}); ICA {len(iters)} iterations, each "
+          f"component correlates >= {sep:.3f} with a source; NMF "
+          f"(7,680 x 257, 64 components) divergence {divs[0]:.4e} -> "
+          f"{divs[-1]:.4e}; VQ loss {err_vq:.4f}; host reads (stated) "
+          + ", ".join(f"{k} {reads[k]} ({stated.get(k, '-')})"
+                      for k in reads)
+          + f", LBG {starved} iterations re-seeding starved clusters; ms a "
+          f"fit step (host clock, reads included): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f", GMM warm start {t_warm:.1f} ms; "
+          + "; ".join(f"{k} {busy_share(*v)}" for k, v in busy.items())
+          + f" | {card}", flush=True)
+    check(not failed, "[learners] " + "; ".join(failed)
+          + f"; the lines that read: {sites}")
+    return params
+
+
+def f0_tracks(B: int, frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """[misc]'s f0: ``synth_f0`` at the frame rate (one value every 80
+    samples) with unvoiced stretches (0), and a second track 2 % off with
+    its own stretches, as a tracker's against the truth."""
+    f0 = synth_f0(B, frames * 80)[:, ::80].astype(np.float32)
+    t = np.arange(frames)
+    a = np.where((t % 40) < 8, 0.0, f0)
+    b = np.where(((t + 3) % 40) < 9, 0.0, f0 * 1.02)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def misc_ops(torch, device, dtype) -> dict:
+    """[misc]'s modules: each a function of the inputs ``misc_inputs``
+    gives it."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "decimate": pt.Decimation(80, **kw),
+        "interpolate": pt.Interpolation(80, **kw),
+        "delay": pt.Delay(40, keeplen=True, **kw),
+        "entropy": pt.Entropy("bit", **kw),
+        "histogram": pt.Histogram(32, -1.0, 1.0, norm=True, softness=1e-2,
+                                  **kw),
+        "snr": pt.SNR(80, full=True, reduction="none", **kw),
+        "rmse": pt.RMSE("none", **kw),
+        "flux": pt.Flux(reduction="none", **kw),
+        "zcross": pt.ZeroCrossingAnalysis(80, norm=True, **kw),
+        "grpdelay": pt.GroupDelay(512, **kw),
+        "phase": pt.Phase(512, unwrap=True, **kw),
+        "yingram": pt.Yingram(400, 16000, **kw),
+        "medfilt": pt.MedianFilter(5, magic_number=0.0, **kw),
+        "magic_intpl": pt.MagicNumberInterpolation(0.0, **kw),
+        "f0eval": pt.F0Evaluation("none", "f0-rmse-cent", **kw),
+    }
+
+
+def misc_inputs(torch, xs, f0a, f0b) -> dict:
+    """Each module's inputs (a tuple) from the signal and two f0 tracks:
+    frames of 400 every 80 samples, their log power spectrum (512 bins)
+    and order-24 LPC."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=xs.device, dtype=xs.dtype)
+    frames = pt.Frame(400, 80, **kw)(xs)
+    logsp = torch.log(power_spectrum(torch, xs))
+    lpc = pt.LPC(400, 24, **kw)(frames)
+    p = torch.exp(logsp)
+    return {
+        "decimate": (xs,), "interpolate": (xs[..., ::80].contiguous(),),
+        "delay": (xs,), "entropy": (p / p.sum(-1, keepdim=True),),
+        "histogram": (xs,), "snr": (xs, xs + 1e-2 * torch.roll(xs, 1, -1)),
+        "rmse": (logsp[:, 1:], logsp[:, :-1]), "flux": (logsp,),
+        "zcross": (xs,), "grpdelay": (None, lpc), "phase": (None, lpc),
+        "yingram": (frames,), "medfilt": (f0a[..., None],),
+        "magic_intpl": (f0a[..., None],), "f0eval": (f0a, f0b)}
+
+
+# [misc]'s bars: max |card float32 - CPU float64| over max|CPU float64| on
+# row 0 of the same inputs.  Ten times a float32 CPU run's reading on row 0
+# of the same signal, rounded up to a power of ten (a reading of 0 takes
+# 1e-6).  Group delay and phase read 1.7e-3 and 3.6e-3: order-24 LPC
+# poles near the unit circle make the delay's denominator small, and the
+# unwrapped phase moves by 2 where a float32 step crosses the wrap.
+MISC_BARS = {
+    "decimate": 1e-6, "interpolate": 1e-6, "delay": 1e-6,
+    "entropy": 1e-5, "histogram": 1e-5, "snr": 1e-5, "rmse": 1e-4,
+    "flux": 1e-4, "zcross": 1e-6, "grpdelay": 1e-1, "phase": 1e-1,
+    "yingram": 1e-4, "medfilt": 1e-6, "magic_intpl": 1e-6, "f0eval": 1e-5}
+
+
+def run_misc(torch, xs, card: str) -> None:
+    """[misc]: the 15 misc modules once each on the card at the flagship's
+    shapes (32 x 19,200 samples, 32 x 241 frames; F0 evaluation on
+    ``synth_f0``'s tracks), float32, under set_sync_debug_mode("error")
+    after a first call: no host read; row 0 against float64 on the CPU
+    within MISC_BARS; each module's median ms of 5 calls."""
+    B, T = xs.shape
+    f0a, f0b = (torch.as_tensor(f, device=xs.device)
+                for f in f0_tracks(B, T // 80))
+    ops = misc_ops(torch, "cuda", torch.float32)
+    ops64 = misc_ops(torch, "cpu", torch.float64)
+    with torch.no_grad():
+        inputs = misc_inputs(torch, xs, f0a, f0b)
+        for name, op in ops.items():
+            op(*inputs[name])
+        torch.cuda.synchronize()
+        out, synced = {}, []
+        for name, op in ops.items():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out[name] = op(*inputs[name])
+            except RuntimeError as exc:
+                if "synchroniz" not in str(exc):
+                    raise
+                synced.append(name)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        check(not synced, f"[misc] host reads in {synced}")
+        ms = {name: float(np.median(cuda_call_ms(
+            torch, lambda op=op, a=inputs[name]: op(*a), 5, warm=1)))
+            for name, op in ops.items()}
+        inputs64 = misc_inputs(torch, xs[:1].double().cpu(),
+                               f0a[:1].double().cpu(),
+                               f0b[:1].double().cpu())
+        errs = {}
+        for name, op in ops.items():
+            got = op(*(None if a is None else a[:1]
+                       for a in inputs[name]))
+            want = ops64[name](*inputs64[name])
+            check(bool(torch.isfinite(out[name]).all()),
+                  f"[misc] {name} is not finite")
+            errs[name] = rel_err(torch, got, want)
+            check(errs[name] <= MISC_BARS[name],
+                  f"[misc] {name} against float64 on the CPU: "
+                  f"{errs[name]:.3e} of max (bar {MISC_BARS[name]})")
+    print(f"[misc] B={B} T={T} ({T // 80} frames a row), float32 against "
+          f"float64 on the CPU, row 0, of max|.|: "
+          + ", ".join(f"{k} {v:.3e} (bar {MISC_BARS[k]})"
+                      for k, v in errs.items())
+          + "; no host read; median ms per call (5 calls): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" | {card}", flush=True)
+
+
+def functional_cases(torch) -> dict:
+    """One call of each of ``functional``'s 100 functions on small inputs
+    (numpy, float64; the derived ones made by the port on the CPU):
+    name -> (positional inputs, keyword arguments)."""
+    from diffsptk_tpu_torch import functional as F
+
+    rng = np.random.default_rng(61)
+
+    def port(fn, *args, **kw):
+        out = fn(*(torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                   for a in args), **kw)
+        return (out[1][0] if isinstance(out, tuple) else out).numpy()
+
+    X = synth_speech(2, 400).astype(np.float64)
+    FR = np.stack([X[:, i * 64:i * 64 + 32] for i in range(5)], 1)
+    SP = np.abs(np.fft.rfft(FR, n=64)) ** 2 + 1e-6
+    C = 0.3 * rng.standard_normal((2, 5, 9)) / np.arange(1, 10)
+    R = port(F.acorr, FR, 8)
+    A = port(F.levdur, R)
+    K = port(F.lpc2par, A)
+    W = port(F.lpc2lsp, A)
+    CX = port(F.stft, X, frame_length=32, frame_period=16, fft_length=64,
+              out_format="complex")
+    P = rng.uniform(0.1, 1, (2, 5, 8))
+    P = P / P.sum(-1, keepdims=True)
+    F0 = np.where(rng.uniform(size=(2, 40)) < 0.3, 0.0,
+                  rng.uniform(80, 300, (2, 40)))
+    F0B = np.where(rng.uniform(size=(2, 40)) < 0.3, 0.0,
+                   F0 * rng.uniform(0.95, 1.05, (2, 40)))
+    SEQ = rng.standard_normal((40, 3))
+    SEQ[::7] = 0.0
+    Y8 = rng.standard_normal((8, 3))
+    PATH = port(F.dtw, SEQ[:10], Y8, return_indices=True)
+    PITCH = np.where(np.arange(10) % 4 == 0, 0.0,
+                     80.0 + np.arange(10))[None]
+    CSM = np.concatenate([np.sort(rng.uniform(0.2, 2.8, (2, 2)), -1),
+                          rng.uniform(0.5, 1.0, (2, 2))], -1)
+    return {
+        "frame": ((X, 32, 16), {}),
+        "window": ((FR,), {}),
+        "unframe": ((FR,), dict(frame_period=16)),
+        "fftr": ((FR, 64), {}),
+        "ifftr": ((np.fft.rfft(FR, n=64),), {}),
+        "spec": ((FR,), dict(fft_length=64)),
+        "stft": ((X,), dict(frame_length=32, frame_period=16,
+                            fft_length=64)),
+        "istft": ((CX,), dict(frame_length=32, frame_period=16,
+                              fft_length=64, out_length=400)),
+        "dct": ((FR,), {}), "idct": ((FR,), dict(dct_type=3)),
+        "dst": ((FR,), dict(dst_type=1)), "idst": ((FR,), {}),
+        "dht": ((FR,), {}), "idht": ((FR,), dict(dht_type=4)),
+        "wht": ((FR,), dict(wht_type="dyadic")), "iwht": ((FR,), {}),
+        "freqt": ((C, 12, 0.42), {}),
+        "mc2b": ((C, 0.42), {}), "b2mc": ((C, 0.42), {}),
+        "gnorm": ((C, -0.5), {}), "ignorm": ((C,), dict(gamma=-0.5)),
+        "alaw": ((X,), {}), "ialaw": ((X,), {}), "ulaw": ((X,), {}),
+        "iulaw": ((X,), dict(mu=100)), "quantize": ((X,), {}),
+        "dequantize": ((rng.integers(0, 256, (2, 40)).astype(float),), {}),
+        "lpc2par": ((A,), {}), "par2lpc": ((K,), {}), "par2is": ((K,), {}),
+        "is2par": ((K,), {}), "par2lar": ((K,), {}), "lar2par": ((K,), {}),
+        "norm0": ((A,), {}),
+        "acorr": ((FR, 8), {}), "levdur": ((R,), {}), "rlevdur": ((A,), {}),
+        "lpc": ((FR, 8), {}), "linear_intpl": ((C, 4), {}),
+        "poledf": ((X, A, 80), {}), "zerodf": ((X, A, 80), {}),
+        "dfs": ((X,), dict(b=[1.0, 0.5], a=[1.0, -0.9])),
+        "df2": ((X, 16000), dict(pole_frequency=1000, pole_bandwidth=200)),
+        "fftcep": ((SP, 8), {}),
+        "c2acr": ((C, 8, 64), {}), "c2mpir": ((C, 16, 64), {}),
+        "mpir2c": ((FR[..., :16], 8, 64), {}), "c2ndps": ((C, 64), {}),
+        "ndps2c": ((SP, 8), {}), "cdist": ((C, C[::-1].copy()), {}),
+        "mcep": ((SP, 8, 0.42, 2), {}),
+        "smcep": ((SP, 8), dict(alpha=0.42, theta=0.1, n_iter=2)),
+        "mgc2mgc": ((C, 10), dict(in_alpha=0.42, out_gamma=-0.5)),
+        "mgc2sp": ((C, 64), dict(alpha=0.42)),
+        "freqt2": ((C, 10), dict(alpha=0.1, theta=0.2)),
+        "ifreqt2": ((C, 10), dict(alpha=0.1, theta=0.2)),
+        "pnorm": ((C, 0.42), {}), "ipnorm": ((C,), {}),
+        "mcpf": ((C,), dict(alpha=0.42, beta=0.2)),
+        "mlsacheck": ((C,), dict(alpha=0.42, warn_type="ignore")),
+        "lpc2lsp": ((A,), {}), "lsp2lpc": ((W,), {}),
+        "lsp2sp": ((W, 64), {}),
+        "lpccheck": ((A,), dict(warn_type="ignore")),
+        "lspcheck": ((W,), dict(warn_type="ignore")),
+        "root_pol": ((A,), {}), "pol_root": ((port(F.root_pol, A[0, 0]),),
+                                             {}),
+        "acr2csm": ((R[..., :4],), {}), "csm2acr": ((CSM,), {}),
+        "fbank": ((SP, 8, 16000), {}),
+        "ifbank": ((SP[..., :8], 64, 16000), {}),
+        "mfcc": ((SP, 6, 8, 16000), {}), "plp": ((SP, 6, 8, 16000), {}),
+        "chroma": ((SP, 12, 16000), {}),
+        "mdct": ((X, 32), {}), "imdct": ((FR[..., :16],), {}),
+        "mdst": ((X, 32), {}), "imdst": ((FR[..., :16],), {}),
+        "hilbert": ((X,), {}),
+        "griffin": ((np.abs(CX),), dict(frame_length=32, frame_period=16,
+                                        fft_length=64, n_iter=3)),
+        "decimate": ((X, 3), dict(start=1)),
+        "interpolate": ((X, 2), dict(start=1)),
+        "delay": ((X, -3), dict(keeplen=True)),
+        "entropy": ((P,), dict(out_format="bit")),
+        "histogram": ((rng.uniform(size=(2, 50)),),
+                      dict(n_bin=5, norm=True, softness=0.05)),
+        "snr": ((X, X + 0.01 * rng.standard_normal(X.shape)),
+                dict(frame_length=100, full=True)),
+        "rmse": ((X, X[::-1].copy()), dict(reduction="none")),
+        "f0eval": ((F0, F0B), dict(out_format="f0-rmse-cent")),
+        "flux": ((SP,), dict(lag=2, norm=1)),
+        "zcross": ((X, 40), dict(norm=True)),
+        "grpdelay": ((), dict(b=C[..., :4], a=A, fft_length=64)),
+        "phase": ((), dict(b=C[..., :4], a=A, fft_length=64,
+                           unwrap=True)),
+        "yingram": ((FR,), dict(sample_rate=16000, lag_min=4, n_bin=4)),
+        "medfilt": ((SEQ,), dict(filter_length=4, magic_number=0.0)),
+        "magic_intpl": ((SEQ,), {}),
+        "delta": ((SEQ,), dict(seed=[[-0.5, 0.0, 0.5], [1.0, -2.0, 1.0]])),
+        "mlpg": ((rng.standard_normal((2, 20, 9)),), {}),
+        "dtw": ((SEQ[:10], Y8), {}),
+        "dtw_merge": ((SEQ[:10], Y8, PATH), {}),
+        "drc": ((X, 16000), dict(threshold=-30, ratio=4)),
+        "excite": ((PITCH,), dict(frame_period=8)),
+    }
+
+
+def to_inputs(torch, args, kw, device, dtype):
+    """A case's numpy inputs as tensors on ``device``: real arrays in
+    ``dtype``, complex in its complex counterpart, integer arrays int64."""
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+
+    def conv(a):
+        if not isinstance(a, np.ndarray):
+            return a
+        a = np.ascontiguousarray(a)
+        if np.iscomplexobj(a):
+            return torch.as_tensor(a, dtype=cdt, device=device)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.as_tensor(a, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return [conv(a) for a in args], {k: conv(v) for k, v in kw.items()}
+
+
+def class_path(torch, fn, args, kw):
+    """``fn``'s operator built afresh (not from the stateless path's cache)
+    with the device and dtype the stateless path gives it, called on the
+    same inputs: the class path that ``fn`` stands for.  ``fn``'s own call
+    records which class and arguments it takes."""
+    from diffsptk_tpu_torch import core
+
+    seen = []
+    base = core.BaseOp.__dict__["_func"]
+
+    def spy(cls, *inputs, **kwargs):
+        seen.append((cls, inputs, dict(kwargs)))
+        return base.__func__(cls, *inputs, **kwargs)
+
+    core.BaseOp._func = classmethod(spy)
+    try:
+        fn(*args, **kw)
+    finally:
+        core.BaseOp._func = base
+    if not seen:               # a static helper (dtw_merge): no operator
+        return fn(*args, **kw)
+    cls, inputs, kwargs = seen[0]
+    kwargs.pop("module", None)
+    device, dtype = core._placement(inputs)
+    return cls(**kwargs, device=device, dtype=dtype)(*inputs)
+
+
+def leaves(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [v for o in out for v in leaves(o)]
+    return [out] if out is not None else []
+
+
+def functional_kernel_rows(torch, xs):
+    """The five calls of ``functional`` that reach a hand kernel, at their
+    shapes (32 x 240 frames of the flagship's signal), with the kernel's
+    module: (name, function, inputs, kernel module's name)."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch import functional as F
+
+    frames = xs.shape[-1] // 80
+    sp = power_spectrum(torch, xs)[:, :frames].contiguous()
+    fr = pt.Frame(400, 80, device=xs.device, dtype=xs.dtype)(xs)[:, :frames]
+    r = F.acorr(fr.contiguous(), 24)
+    return [
+        ("mcep", lambda: F.mcep(sp, 24, 0.42, n_iter=10), "newton", 10),
+        ("smcep", lambda: F.smcep(sp, 24, 0.42, n_iter=10), "newton", 10),
+        ("plp", lambda: F.plp(sp, 24, 40, 16000), "solve", 1),
+        ("levdur", lambda: F.levdur(r), "solve", 1),
+        ("lpc", lambda: F.lpc(fr.contiguous(), 24), "solve", 1)]
+
+
+def run_functional(torch, xs, card: str) -> dict:
+    """[functional]: each of ``functional``'s 100 functions once on small
+    float32 inputs on the card, under set_sync_debug_mode("error") after a
+    first call (no host read), each equal to its class path on the same
+    inputs within 1e-6 of max|y|; then the five calls that reach a hand
+    kernel at their shapes, with the kernel's launches counted (mcep and
+    smcep: the Newton kernel 10 a call; PLP-24, levdur and LPC at order 24
+    over 7,680 frames: the SPD solve kernel once), each against its class
+    path's launches and values.  Returns the launch counts."""
+    from diffsptk_tpu_torch import functional as F
+    from diffsptk_tpu_torch.kernels import newton, solve
+
+    cases = functional_cases(torch)
+    errs, synced = {}, []
+    with torch.no_grad():
+        for name, (args, kw) in cases.items():
+            a, k = to_inputs(torch, args, kw, "cuda", torch.float32)
+            fn = getattr(F, name)
+            fn(*a, **k)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fn(*a, **k)
+            except RuntimeError as exc:
+                if "synchroniz" not in str(exc):
+                    raise
+                synced.append(name)
+                got = None
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if got is None:
+                got = fn(*a, **k)
+            want = class_path(torch, fn, a, k)
+            err = 0.0
+            for g, w in zip(leaves(got), leaves(want)):
+                check(g.device.type == "cuda", f"[functional] {name} left "
+                      "the card")
+                scale = float(w.abs().max()) if w.numel() else 0.0
+                err = max(err, float((g - w).abs().max()) / max(scale, 1e-30)
+                          if w.numel() else 0.0)
+            errs[name] = err
+        check(not synced, f"[functional] host reads in {synced}")
+        bad = {k: v for k, v in errs.items() if not v <= 1e-6}
+        check(not bad, f"[functional] against the class path: {bad}")
+        mods = {"newton": newton, "solve": solve}
+        rows, launches = [], {}
+        for name, fn, kernel, expected in functional_kernel_rows(torch, xs):
+            mod = mods[kernel]
+            fn()
+            torch.cuda.synchronize()
+            mod.launches = 0
+            y = fn()
+            torch.cuda.synchronize()
+            launches[name] = mod.launches
+            check(launches[name] == expected,
+                  f"[functional] {name} launched the {kernel} kernel "
+                  f"{launches[name]} times, expected {expected}")
+            ms = float(np.median(cuda_call_ms(torch, fn, 10, warm=1)))
+            rows.append(f"{name} {kernel} x{launches[name]} {ms:.3f} ms")
+    worst = max(errs, key=errs.get)
+    print(f"[functional] {len(errs) - 1} functions (and iwht, another "
+          f"name of wht) on the card, float32, each against its class path: "
+          f"max {errs[worst]:.3e} of max|y| ({worst}; bar 1e-6), no host "
+          f"read; at their shapes (32 x 240 "
+          f"frames; kernel, launches a call, median of 10 calls): "
+          + ", ".join(rows) + f" | {card}", flush=True)
+    return launches
+
+
+def run_io(torch, xs, params: dict, card: str) -> None:
+    """[io]: a 16-bit wav written and read back in a temporary directory
+    (within 1/32768); the GMM's parameters through an npz checkpoint
+    (exact); ``Throughput`` of the flagship call beside its CUDA-event
+    median; ``trace`` of one flagship call (a non-empty chrome trace)."""
+    import os
+    import tempfile
+
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.utils import checkpoint
+    from diffsptk_tpu_torch.utils.profiling import Throughput, trace
+
+    voc = pt.MelCepstralVocoder(cascade="fused", device="cuda",
+                                dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as d:
+        wav = os.path.join(d, "x.wav")
+        pt.write(wav, xs[0], 16000)
+        y, sr = pt.read(wav, device="cuda", dtype=torch.float32)
+        err_wav = float((y - xs[0]).abs().max())
+        check(sr == 16000 and err_wav <= 1 / 32768,
+              f"[io] the wav round trip: {err_wav:.3e} (bar 1/32768)")
+        path = os.path.join(d, "gmm.npz")
+        checkpoint.save(path, params)
+        back = checkpoint.load(path, {k: torch.zeros_like(v)
+                                      for k, v in params.items()})
+        check(all(torch.equal(back[k], params[k]) for k in params),
+              "[io] the checkpoint did not round-trip exactly")
+        with torch.no_grad():
+            meter = Throughput(voc.analysis_synthesis, warmup=3, iters=20)
+            rate = meter.measure(xs, n_samples=xs.numel())
+            event_ms = float(np.median(cuda_call_ms(
+                torch, lambda: voc.analysis_synthesis(xs), 20)))
+            tdir = os.path.join(d, "trace")
+            with trace(tdir):
+                voc.analysis_synthesis(xs)
+        size = os.path.getsize(os.path.join(tdir, "trace.json"))
+        check(size > 0, "[io] the trace is empty")
+    print(f"[io] wav round trip {err_wav:.3e} (bar 1/32768); checkpoint of "
+          f"the GMM ({', '.join(f'{k} {tuple(v.shape)}' for k, v in params.items())}) "
+          f"exact; Throughput of the flagship call {rate:.1f} samples/s "
+          f"({meter.last_seconds_per_call * 1e3:.3f} ms a call, host clock), "
+          f"CUDA-event median {event_ms:.3f} ms ({xs.numel() / event_ms * 1e3:.1f} "
+          f"samples/s); trace {size} bytes | {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3530,6 +4336,16 @@ def main() -> int:
     run_griffin(torch, sp_w, xw.shape[-1], card)
     run_ops_rest(torch, xw, sp_w, feats["mfcc"], feats["plp24"], card)
     del sp_w, feats
+
+    # 33.-36. the learners at their users' width, the misc ops, every
+    #     function of the stateless API (the Newton and SPD solve kernels
+    #     through it), and the utilities
+    data = learner_data(torch, 320, 19200, dev)
+    gmm_params = run_learners(torch, data, card)
+    del data
+    run_misc(torch, xw, card)
+    run_functional(torch, xw, card)
+    run_io(torch, xw, gmm_params, card)
 
     kernels = []
     meta = {

@@ -7,7 +7,8 @@ Each hand-written CUDA kernel (``csrc/``) has a plain torch twin beside it,
 which is what a CPU tensor runs.  The package never imports JAX.
 """
 
-from .core import BaseNonFunctionalOp, BaseOp, Design
+from . import functional
+from .core import BaseLearnerOp, BaseNonFunctionalOp, BaseOp, Design
 from .kernels.state import twins
 from .models.mcep_vocoder import MelCepstralVocoder
 from .models.world_vocoder import WorldVocoder
@@ -64,6 +65,7 @@ from .ops.fftr import (
     RealValuedFastFourierTransform,
     RealValuedInverseFastFourierTransform,
 )
+from .ops import *  # noqa: F401,F403  (the submodules, as the JAX package)
 from .ops.frame import Frame
 from .ops.freqt import FrequencyTransform
 from .ops.freqt2 import (
@@ -80,6 +82,13 @@ from .ops.gnorm import (
 )
 from .ops.levdur import LevinsonDurbin, ReverseLevinsonDurbin
 from .ops.linear_intpl import LinearInterpolation
+from .ops.learners import (
+    GaussianMixtureModeling,
+    IndependentComponentAnalysis,
+    LindeBuzoGrayAlgorithm,
+    NonnegativeMatrixFactorization,
+    PrincipalComponentAnalysis,
+)
 from .ops.lpc import LinearPredictiveCodingAnalysis
 from .ops.lsp import (
     LinearPredictiveCoefficientsStabilityCheck,
@@ -107,6 +116,23 @@ from .ops.mdct import (
     ModifiedDiscreteCosineTransform,
     ModifiedDiscreteSineTransform,
     ModifiedDiscreteTransform,
+)
+from .ops.misc import (
+    Decimation,
+    Delay,
+    Entropy,
+    F0Evaluation,
+    Flux,
+    GroupDelay,
+    Histogram,
+    Interpolation,
+    MagicNumberInterpolation,
+    MedianFilter,
+    Phase,
+    RootMeanSquareError,
+    SignalToNoiseRatio,
+    Yingram,
+    ZeroCrossingAnalysis,
 )
 from .ops.mgc2mgc import MelGeneralizedCepstrumToMelGeneralizedCepstrum
 from .ops.mgc2sp import MelGeneralizedCepstrumToSpectrum
@@ -142,11 +168,31 @@ from .ops.stft import (
     ShortTimeFourierTransform,
 )
 from .ops.unframe import Unframe
+from .ops.vq import (
+    InverseMultiStageVectorQuantization,
+    InverseVectorQuantization,
+    MultiStageVectorQuantization,
+    VectorQuantization,
+)
 from .ops.window import Window
 from .ops.world_synth import WorldSynthesis
 from .ops.zerodf import AllZeroDigitalFilter
-from .signals import mseq, mseq_like
+from .signals import (
+    impulse,
+    mseq,
+    mseq_like,
+    nrand,
+    nrand_like,
+    ramp,
+    rand,
+    rand_like,
+    sin,
+    step,
+    train,
+)
 from .utils.carry import load_jax_params
+from .utils.wavio import get_alpha, read, write
+from .version import __version__
 
 STFT = ShortTimeFourierTransform
 ISTFT = InverseShortTimeFourierTransform
@@ -179,6 +225,13 @@ DRC = DynamicRangeCompression
 DTW = DynamicTimeWarping
 IIR = InfiniteImpulseResponseDigitalFilter
 MLPG = MaximumLikelihoodParameterGeneration
+RMSE = RootMeanSquareError
+SNR = SignalToNoiseRatio
+GMM = GaussianMixtureModeling
+LBG = LindeBuzoGrayAlgorithm
+PCA = PrincipalComponentAnalysis
+ICA = IndependentComponentAnalysis
+NMF = NonnegativeMatrixFactorization
 
 __all__ = [
     "ALawCompression",
@@ -190,6 +243,7 @@ __all__ = [
     "Aperiodicity",
     "Autocorrelation",
     "AutocorrelationToCompositeSinusoidalModelCoefficients",
+    "BaseLearnerOp",
     "BaseNonFunctionalOp",
     "BaseOp",
     "CQT",
@@ -207,6 +261,8 @@ __all__ = [
     "DRC",
     "DST",
     "DTW",
+    "Decimation",
+    "Delay",
     "Delta",
     "Design",
     "DiscreteCosineTransform",
@@ -214,18 +270,26 @@ __all__ = [
     "DiscreteSineTransform",
     "DynamicRangeCompression",
     "DynamicTimeWarping",
+    "Entropy",
     "ExcitationGeneration",
+    "F0Evaluation",
     "FBANK",
     "FFTR",
+    "Flux",
     "FractionalOctaveBandAnalysis",
     "Frame",
     "FrequencyTransform",
+    "GMM",
     "GammatoneFilterBankAnalysis",
     "GammatoneFilterBankSynthesis",
+    "GaussianMixtureModeling",
     "GeneralizedCepstrumGainNormalization",
     "GeneralizedCepstrumInverseGainNormalization",
     "GriffinLim",
+    "GroupDelay",
     "HilbertTransform",
+    "Histogram",
+    "ICA",
     "ICQT",
     "IDCT",
     "IDHT",
@@ -239,7 +303,9 @@ __all__ = [
     "IPQMF",
     "ISTFT",
     "IWHT",
+    "IndependentComponentAnalysis",
     "InfiniteImpulseResponseDigitalFilter",
+    "Interpolation",
     "InverseConstantQTransform",
     "InverseDiscreteCosineTransform",
     "InverseDiscreteHartleyTransform",
@@ -248,12 +314,16 @@ __all__ = [
     "InverseModifiedDiscreteCosineTransform",
     "InverseModifiedDiscreteSineTransform",
     "InverseModifiedDiscreteTransform",
+    "InverseMultiStageVectorQuantization",
     "InverseShortTimeFourierTransform",
     "InverseSineToParcorCoefficients",
     "InverseUniformQuantization",
+    "InverseVectorQuantization",
     "InverseWalshHadamardTransform",
+    "LBG",
     "LPC",
     "LevinsonDurbin",
+    "LindeBuzoGrayAlgorithm",
     "LineSpectralPairsStabilityCheck",
     "LineSpectralPairsToLinearPredictiveCoefficients",
     "LineSpectralPairsToSpectrum",
@@ -270,7 +340,9 @@ __all__ = [
     "MLSA",
     "MLSADigitalFilterCoefficientsToMelCepstrum",
     "MLSADigitalFilterStabilityCheck",
+    "MagicNumberInterpolation",
     "MaximumLikelihoodParameterGeneration",
+    "MedianFilter",
     "MelCepstralAnalysis",
     "MelCepstralVocoder",
     "MelCepstrumInversePowerNormalization",
@@ -288,40 +360,65 @@ __all__ = [
     "ModifiedDiscreteTransform",
     "MuLawCompression",
     "MuLawExpansion",
+    "MultiStageVectorQuantization",
+    "NMF",
     "NegativeDerivativeOfPhaseSpectrumToCepstrum",
+    "NonnegativeMatrixFactorization",
+    "PCA",
     "PLP",
     "PQMF",
     "ParcorCoefficientsToInverseSine",
     "ParcorCoefficientsToLinearPredictiveCoefficients",
     "ParcorCoefficientsToLogAreaRatio",
     "PerceptualLinearPredictiveCoefficientsAnalysis",
+    "Phase",
     "Pitch",
     "PitchAdaptiveSpectralAnalysis",
     "PolynomialToRoots",
+    "PrincipalComponentAnalysis",
     "PseudoInverseMGLSADigitalFilter",
     "PseudoMGLSADigitalFilter",
     "PseudoQuadratureMirrorFilterBankAnalysis",
     "PseudoQuadratureMirrorFilterBankSynthesis",
+    "RMSE",
     "RealValuedFastFourierTransform",
     "RealValuedInverseFastFourierTransform",
     "ReverseLevinsonDurbin",
+    "RootMeanSquareError",
     "RootsToPolynomial",
+    "SNR",
     "STFT",
     "SecondOrderAllPassFrequencyTransform",
     "SecondOrderAllPassInverseFrequencyTransform",
     "SecondOrderAllPassMelCepstralAnalysis",
     "SecondOrderDigitalFilter",
     "ShortTimeFourierTransform",
+    "SignalToNoiseRatio",
     "Spectrum",
     "Unframe",
     "UniformQuantization",
+    "VectorQuantization",
     "WHT",
     "WalshHadamardTransform",
     "Window",
     "WorldSynthesis",
     "WorldVocoder",
+    "Yingram",
+    "ZeroCrossingAnalysis",
+    "get_alpha",
+    "impulse",
     "load_jax_params",
     "mseq",
     "mseq_like",
+    "nrand",
+    "nrand_like",
+    "ramp",
+    "rand",
+    "rand_like",
+    "read",
+    "sin",
+    "step",
+    "train",
     "twins",
+    "write",
 ]

@@ -14,11 +14,18 @@ and ``torch.optim`` work with no further plumbing.
 
 Operators run on the card unless the caller passes ``device="cpu"``:
 ``device=None`` means ``"cuda"`` and raises where there is no card.
+
+The stateless path (``BaseOp._func``, behind ``functional``) builds the
+operator once per hashable argument set, device and dtype, keeps it in an
+LRU cache (the JAX package's ``design_cache``) and calls it: a function
+runs on its input tensor's device in its input's real dtype.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -152,6 +159,16 @@ class BaseOp(nn.Module):
     def forward(self, *args, **kwargs):
         return self._forward(*args, **kwargs, **self._state())
 
+    @classmethod
+    def _func(cls, *inputs, **kwargs):
+        """Stateless path: the operator built from ``kwargs`` (cached) on
+        the first tensor input's device, in its real dtype, called on
+        ``inputs``.  ``module`` (the JAX package's switch between child
+        ops and closures) has no meaning here and is dropped."""
+        kwargs.pop("module", None)
+        device, dtype = _placement(inputs)
+        return _OPS.get(cls, kwargs, device, dtype)(*inputs)
+
     @staticmethod
     def _check(*args, **kwargs) -> None:
         raise NotImplementedError
@@ -168,3 +185,82 @@ class BaseOp(nn.Module):
 class BaseNonFunctionalOp(BaseOp):
     """Marker: an operator with no stateless functional form (the JAX
     package's ``BaseNonFunctionalOp``, ``diffsptk_tpu/core.py:221``)."""
+
+
+class BaseLearnerOp(nn.Module):
+    """Base of the data-driven learners (GMM, LBG, PCA, ICA, NMF): they fit
+    in ``forward`` and map new data in ``transform`` instead of the
+    design/forward protocol (the JAX package's ``BaseLearnerOp``,
+    ``diffsptk_tpu/core.py:226``).  Both run with every float32 matmul in
+    full fp32, as the JAX package pins its learner entry points to full
+    f32.  Learned state is held in buffers, so ``state_dict`` and ``.to()``
+    carry it."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for name in ("forward", "transform"):
+            if name in cls.__dict__:
+                setattr(cls, name, full_precision(cls.__dict__[name]))
+
+    def transform(self, *args, **kwargs):
+        raise NotImplementedError
+
+
+def _freeze(value):
+    """A hashable key of a constructor argument; ``TypeError`` for a
+    tensor or an array, whose value a key cannot stand for."""
+    if isinstance(value, (torch.Tensor, np.ndarray)):
+        raise TypeError("tensor arguments are not cached")
+    if isinstance(value, (list, tuple)):
+        return (type(value).__name__,) + tuple(_freeze(v) for v in value)
+    if isinstance(value, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in value.items()))
+    hash(value)
+    return (type(value).__name__, value)
+
+
+def _placement(inputs) -> tuple[torch.device, torch.dtype]:
+    """The device and real dtype of the first tensor among ``inputs``
+    (the card and the default dtype where there is none)."""
+    for t in inputs:
+        if isinstance(t, torch.Tensor):
+            if t.is_complex():
+                dt = torch.float32 if t.dtype == torch.complex64 \
+                    else torch.float64
+            elif t.is_floating_point():
+                dt = t.dtype
+            else:
+                dt = torch.get_default_dtype()
+            return t.device, dt
+    return resolve_device(None), torch.get_default_dtype()
+
+
+class _OpCache:
+    """LRU cache of operators built for the stateless path, keyed by
+    (class, arguments, device, dtype); arguments that hold a tensor or an
+    array build a fresh operator every call."""
+
+    def __init__(self, maxsize: int = 512) -> None:
+        self.maxsize = maxsize
+        self._ops: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, cls, kwargs: dict, device, dtype):
+        try:
+            key = (cls, _freeze(kwargs), device, dtype)
+        except TypeError:
+            return cls(**kwargs, device=device, dtype=dtype)
+        with self._lock:
+            op = self._ops.get(key)
+            if op is not None:
+                self._ops.move_to_end(key)
+                return op
+        op = cls(**kwargs, device=device, dtype=dtype)
+        with self._lock:
+            self._ops[key] = op
+            while len(self._ops) > self.maxsize:
+                self._ops.popitem(last=False)
+        return op
+
+
+_OPS = _OpCache()

@@ -138,8 +138,9 @@ def roots_to_polynomial(x: torch.Tensor) -> torch.Tensor:
     """(..., M) roots -> (..., M+1) coefficients, iterated convolution
     with (1 - r_m z^-1)."""
     M = x.shape[-1]
-    a = torch.zeros(x.shape[:-1] + (M + 1,), dtype=x.dtype, device=x.device)
-    a[..., 0] = 1
+    # [1, 0, ..., 0] built on the device: writing the scalar 1 into a
+    # complex CUDA tensor copies it from the host and waits for the card
+    a = torch.cat([torch.ones_like(x[..., :1]), torch.zeros_like(x)], dim=-1)
     for m in range(M):
         a = torch.cat((a[..., :1], a[..., 1:] - x[..., m:m + 1] * a[..., :-1]),
                       dim=-1)

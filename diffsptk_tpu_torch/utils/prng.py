@@ -76,10 +76,13 @@ def threefry2x32(k1, k2, x1, x2):
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802 (JAX's name)
     """The key of an integer seed, as ``jax.random.PRNGKey`` makes it from
-    a 64-bit seed: (seed >> 32, seed & 0xFFFFFFFF)."""
+    a 64-bit seed: (seed >> 32, seed & 0xFFFFFFFF).  Filled on ``device``:
+    a key built from a host list would be copied to the card and waited
+    for."""
     seed = int(seed)
-    return torch.tensor([(seed >> 32) & MASK, seed & MASK],
-                        dtype=torch.int64, device=device)
+    return torch.stack([torch.full((), word, dtype=torch.int64,
+                                   device=device)
+                        for word in ((seed >> 32) & MASK, seed & MASK)])
 
 
 def _words(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -152,10 +155,13 @@ def _unit(key: torch.Tensor, shape, dtype) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape, dtype=torch.float32,
             minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` on [minval, maxval)."""
-    lo = torch.tensor(minval, dtype=dtype, device=key.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
-    return torch.maximum(lo, _unit(key, shape, dtype) * (hi - lo) + lo)
+    """``jax.random.uniform`` on [minval, maxval).  The bounds and their
+    span are rounded to ``dtype`` on the host, as JAX computes them in it;
+    no scalar is copied to the device."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    lo, hi = np_dtype(minval), np_dtype(maxval)
+    return torch.clamp(_unit(key, shape, dtype) * float(hi - lo) + float(lo),
+                       min=float(lo))
 
 
 def erfinv_giles(x: torch.Tensor) -> torch.Tensor:
@@ -165,10 +171,8 @@ def erfinv_giles(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
 
     def coeff(i):
-        return torch.where(small, torch.tensor(ERFINV_SMALL[i], dtype=x.dtype,
-                                               device=x.device),
-                           torch.tensor(ERFINV_LARGE[i], dtype=x.dtype,
-                                        device=x.device))
+        return torch.where(small, torch.full_like(x, ERFINV_SMALL[i]),
+                           ERFINV_LARGE[i])
 
     p = coeff(0)
     for i in range(1, len(ERFINV_SMALL)):

@@ -29,7 +29,11 @@ path 1e-5; the vocoder's modes within the flagship's 1e-2 of max|y|.
 The speech-feature front end, gammatone and the small signal ops float32
 on the card against float64 on the CPU within chip_smoke.py's bars
 (FEATURE_BARS, GAMMATONE_BARS, OPS_REST_BARS); the eig roots equal to
-the CPU's (one host computation).
+the CPU's (one host computation).  The misc ops within MISC_BARS and with
+no host read; two LBG runs on the card equal (integer counts and a one-hot
+GEMM for the centroid sums); the stateless functions' kernel launches;
+the median filter beyond torch.quantile's 2^24 elements equal to the CPU's
+run in chunks of the batch.
 """
 
 from __future__ import annotations
@@ -42,9 +46,14 @@ import diffsptk_tpu_torch as pt
 from chip_smoke import (
     FEATURE_BARS,
     GAMMATONE_BARS,
+    MISC_BARS,
     OPS_REST_BARS,
     OPS_REST_HOST_STEPS,
+    f0_tracks,
     feature_ops,
+    functional_kernel_rows,
+    misc_inputs,
+    misc_ops,
     ops_rest_inputs,
     ops_rest_ops,
     power_spectrum,
@@ -1119,3 +1128,107 @@ def test_dtw_path_is_the_stated_host_step(ops_rest_case):
     assert path.device.type == "cuda"
     assert path[0].tolist() == [0, 0]
     assert path[-1].tolist() == [frames - 1, frames - 1]
+
+
+@pytest.mark.parametrize("name", sorted(MISC_BARS))
+def test_misc_on_the_card_match_the_cpu(cuda, name):
+    """Each misc op float32 on the card, with no host read, against float64
+    on the CPU on row 0 (32 x 4,800 samples: 60 frames a row)."""
+    xs = torch.as_tensor(synth_speech(4, 4800), device=cuda)
+    f0a, f0b = (torch.as_tensor(f, device=cuda) for f in f0_tracks(4, 60))
+    with torch.no_grad():
+        inputs = misc_inputs(torch, xs, f0a, f0b)[name]
+        op = misc_ops(torch, "cuda", torch.float32)[name]
+        op(*inputs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = op(*(None if a is None else a[:1] for a in inputs))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = misc_ops(torch, "cpu", torch.float64)[name](
+            *misc_inputs(torch, xs[:1].double().cpu(), f0a[:1].double().cpu(),
+                         f0b[:1].double().cpu())[name])
+    assert _rel(got, want) <= MISC_BARS[name]
+
+
+def test_lbg_two_runs_on_the_card_are_equal(cuda):
+    """The same codebook-size trajectory, indices and codebook twice."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(np.concatenate([
+        rng.standard_normal((4096, 25)) * 0.3 + rng.standard_normal(25),
+        rng.standard_normal((4096, 25))]).astype(np.float32), device=cuda)
+    runs = []
+    for _ in range(2):
+        sizes = []
+        cb, idx, dist = pt.LBG(24, 64, n_iter=10, batch_size=2048,
+                               min_data_per_cluster=8, device=cuda)(
+            x, return_indices=True,
+            callback=lambda codebook_size, **kw: sizes.append(
+                codebook_size))
+        runs.append((sizes, idx, cb))
+    assert runs[0][0] == runs[1][0]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2], runs[1][2])
+
+
+def test_functional_takes_the_kernels(cuda):
+    """mcep and smcep take the Newton kernel 10 times a call, PLP-24,
+    levdur and LPC at order 24 over 7,680 frames the SPD solve kernel
+    once, as their classes do."""
+    xs = torch.as_tensor(synth_speech(32, 19200), device=cuda)
+    mods = {"newton": newton, "solve": solve}
+    with torch.no_grad():
+        for name, fn, kernel, expected in functional_kernel_rows(torch, xs):
+            mods[kernel].launches = 0
+            y = fn()
+            torch.cuda.synchronize()
+            assert mods[kernel].launches == expected, name
+            assert y.device.type == "cuda" and bool(torch.isfinite(y).all())
+
+
+def test_median_filter_beyond_quantile_limit(cuda):
+    """4 x 2^20 frames of 5 features, windows of 4: 84 million window
+    elements, more than torch.quantile's 2^24.  The card's result equals
+    the CPU's run a batch row at a time, and a slice equals
+    torch.nanquantile's."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((4, 1 << 20, 5)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.1] = 0.0
+    x = torch.as_tensor(x)
+    kw = dict(magic_number=0.0, dtype=torch.float32)
+    with torch.no_grad():
+        card = pt.MedianFilter(4, device=cuda, **kw)(x.to(cuda)).cpu()
+        op = pt.MedianFilter(4, device="cpu", **kw)
+        chunked = torch.cat([op(x[i:i + 1]) for i in range(4)])
+    assert torch.equal(card, chunked)
+    plain = pt.MedianFilter(4, device="cpu", dtype=torch.float32)
+    y = x[:1, :4096]
+    windows = torch.nn.functional.pad(y, (0, 0, 2, 1), value=float("nan")
+                                      ).unfold(1, 4, 1)
+    torch.testing.assert_close(plain(y), torch.nanquantile(windows, 0.5,
+                                                           dim=-1))
+
+
+def test_roots_to_polynomial_and_griffin_make_no_host_read(cuda):
+    """ROADMAP C.15: writing the scalar 1 into a complex CUDA tensor, and a
+    key built from a host list, each copied from the host and waited for
+    the card; both are now made on the card."""
+    roots = torch.polar(torch.rand(8, 6, device=cuda) * 0.9,
+                        torch.rand(8, 6, device=cuda) * 3.0)
+    mag = torch.rand(2, 11, 33, device=cuda) + 0.1
+    op = pt.RootsToPolynomial(6, device=cuda)
+    gl = pt.GriffinLim(32, 16, 64, n_iter=2, device=cuda)
+    with torch.no_grad():
+        op(roots)
+        gl(mag)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a = op(roots)
+            y = gl(mag)
+            key = prng.PRNGKey(7, device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert a.shape == (8, 7) and y.shape[0] == 2
+    assert key.tolist() == prng.PRNGKey(7).tolist()
