@@ -23,9 +23,7 @@ runs on its input tensor's device in its input's real dtype.
 
 from __future__ import annotations
 
-import collections
 import functools
-import threading
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -167,7 +165,11 @@ class BaseOp(nn.Module):
         ops and closures) has no meaning here and is dropped."""
         kwargs.pop("module", None)
         device, dtype = _placement(inputs)
-        return _OPS.get(cls, kwargs, device, dtype)(*inputs)
+        try:
+            args = _Arguments(kwargs)
+        except TypeError:       # a tensor or an array: built anew
+            return cls(**kwargs, device=device, dtype=dtype)(*inputs)
+        return _operator(cls, args, device, dtype)(*inputs)
 
     @staticmethod
     def _check(*args, **kwargs) -> None:
@@ -235,32 +237,22 @@ def _placement(inputs) -> tuple[torch.device, torch.dtype]:
     return resolve_device(None), torch.get_default_dtype()
 
 
-class _OpCache:
-    """LRU cache of operators built for the stateless path, keyed by
-    (class, arguments, device, dtype); arguments that hold a tensor or an
-    array build a fresh operator every call."""
+class _Arguments:
+    """Constructor arguments as a cache key, hashed and compared by their
+    frozen value (``TypeError`` for a tensor or an array)."""
 
-    def __init__(self, maxsize: int = 512) -> None:
-        self.maxsize = maxsize
-        self._ops: collections.OrderedDict = collections.OrderedDict()
-        self._lock = threading.Lock()
+    def __init__(self, kwargs: dict) -> None:
+        self.kwargs, self.key = kwargs, _freeze(kwargs)
 
-    def get(self, cls, kwargs: dict, device, dtype):
-        try:
-            key = (cls, _freeze(kwargs), device, dtype)
-        except TypeError:
-            return cls(**kwargs, device=device, dtype=dtype)
-        with self._lock:
-            op = self._ops.get(key)
-            if op is not None:
-                self._ops.move_to_end(key)
-                return op
-        op = cls(**kwargs, device=device, dtype=dtype)
-        with self._lock:
-            self._ops[key] = op
-            while len(self._ops) > self.maxsize:
-                self._ops.popitem(last=False)
-        return op
+    def __hash__(self) -> int:
+        return hash(self.key)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _Arguments) and self.key == other.key
 
 
-_OPS = _OpCache()
+@functools.lru_cache(maxsize=512)
+def _operator(cls, args: _Arguments, device, dtype):
+    """The stateless path's operator of ``cls``, built from ``args`` on
+    ``device`` in ``dtype`` (LRU-cached)."""
+    return cls(**args.kwargs, device=device, dtype=dtype)

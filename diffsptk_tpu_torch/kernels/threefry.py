@@ -2,9 +2,10 @@
 (``csrc/threefry.cu``) and the dispatch between it and its plain twin,
 ``utils/prng.py``.
 
-Two draws serve WORLD: :func:`normal`, a flat draw under one key (the
-windowed waveform's dither, ``ops/world_common.py``), and
-:func:`slot_normal`, the synthesis's per-slot noise under keys folded from
+Three draws: :func:`normal` and :func:`uniform`, flat draws under one
+key (WORLD's dither in ``ops/world_common.py``, excitation noise, the
+learners' initial codebooks and factors, ``signals.nrand`` and ``rand``),
+and :func:`slot_normal`, WORLD's synthesis noise under keys folded from
 each slot's counter (``ops/world_synth.py``).  A CUDA float32 draw launches
 the kernel; a CPU tensor, float64, or a draw inside ``twins()`` takes the
 twin.  Both give JAX's bits exactly, and float32 normals within an ulp or
@@ -106,12 +107,33 @@ def _use_kernel(device, dtype) -> bool:
             and not use_twins())
 
 
+def _on(key: torch.Tensor, device) -> torch.Tensor:
+    """The key on ``device``: a host key bound for the card is filled
+    there from its words, as a copy of it would wait for the card."""
+    if torch.device(device).type != "cuda" or key.is_cuda:
+        return key.to(device)
+    return torch.stack([torch.full((), w, dtype=torch.int64, device=device)
+                        for w in key.tolist()])
+
+
 def normal(key: torch.Tensor, shape, dtype, device) -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)`` on ``device``: the kernel
     for a CUDA float32 draw, the twin elsewhere."""
     if _use_kernel(device, dtype):
         return normal_cuda(key, shape, device)
-    return prng.normal(key.to(device), shape, dtype)
+    return prng.normal(_on(key, device), shape, dtype)
+
+
+def uniform(key: torch.Tensor, shape, dtype, device, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)`` on
+    ``device``: for a CUDA float32 draw the kernel's bits, scaled as the
+    twin scales them (the same values bit for bit), the twin elsewhere."""
+    if _use_kernel(device, dtype):
+        b = normal_cuda(key, shape, device, bits=True).to(torch.int64)
+        return prng.to_range(prng.unit32(b & prng.MASK), dtype, minval,
+                             maxval)
+    return prng.uniform(_on(key, device), shape, dtype, minval, maxval)
 
 
 def slot_normal(seed: int, time_index: torch.Tensor, span: int,

@@ -11,9 +11,10 @@ chunks a large array (or the input may already be an iterable of arrays),
 and every reduction over the data is a sum of per-chunk statistics, equal
 to the full-batch result up to the order of summation.
 
-Random draws come from JAX's generator (``utils/prng.py``), so a seed
+Random draws come from JAX's generator, drawn on the learner's device
+(``kernels/threefry.py``, whose twin is ``utils/prng.py``), so a seed
 gives the JAX package's initial means, codebooks and factors (its uniform
-factors bit for bit, its normals to an ulp: ROADMAP C.13).
+factors bit for bit, its normals to a few ulps: ROADMAP C.13).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core import BaseLearnerOp, resolve_device
+from ..kernels import threefry
 from ..utils import prng
 from .vq import VectorQuantization, initial_codebook
 
@@ -721,12 +723,12 @@ class NonnegativeMatrixFactorization(BaseLearnerOp):
         dtype = dtype or torch.get_default_dtype()
         dev = resolve_device(device)
         k1, k2 = prng.split(prng.PRNGKey(seed))
-        U = prng.uniform(k1, (n_data, n_comp), dtype)
+        U = threefry.uniform(k1, (n_data, n_comp), dtype, dev)
         if act_norm:
             U = U / torch.sum(U, dim=1, keepdim=True)
-        self.register_buffer("U", U.to(dev))
-        self.register_buffer("H", prng.uniform(k2, (n_comp, order + 1),
-                                               dtype).to(dev))
+        self.register_buffer("U", U)
+        self.register_buffer("H", threefry.uniform(k2, (n_comp, order + 1),
+                                                   dtype, dev))
 
     def _update(self, U, z):
         """One multiplicative update of the coefficients of ``z``."""
@@ -798,8 +800,8 @@ class NonnegativeMatrixFactorization(BaseLearnerOp):
         """Coefficients of new data on the learned dictionary (fixed H),
         from uniform draws of ``PRNGKey(0)``."""
         z = torch.as_tensor(x, device=self.H.device)
-        U = prng.uniform(prng.PRNGKey(0), (z.shape[0], self.H.shape[0]),
-                         z.dtype).to(z.device)
+        U = threefry.uniform(prng.PRNGKey(0), (z.shape[0], self.H.shape[0]),
+                             z.dtype, z.device)
         for _ in range(self.n_iter):
             U = self._update(U, z)
         return U

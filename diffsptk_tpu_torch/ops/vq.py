@@ -2,9 +2,9 @@
 
 Nearest-neighbour codebook lookup with a straight-through estimator and a
 commitment loss, and its residual (multi-stage) form.  Codebooks are
-``nn.Parameter``s drawn from JAX's generator (``utils/prng.py``) on the
-host, so a seed gives the JAX package's codebook (ROADMAP C.13: its
-normals to an ulp), then moved to the op's device.
+``nn.Parameter``s drawn from JAX's generator on the op's device
+(``kernels/threefry.py``), so a seed gives the JAX package's codebook
+(ROADMAP C.13: its normals to a few ulps).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from ..core import BaseNonFunctionalOp, check_size, full_precision, \
     resolve_device
+from ..kernels import threefry
 from ..utils import prng
 
 
@@ -27,10 +28,10 @@ def _nearest(x: torch.Tensor, codebook: torch.Tensor):
 
 
 def initial_codebook(seed, shape, dtype, device) -> torch.Tensor:
-    """``jax.random.normal(PRNGKey(seed), shape, dtype)`` on the host, moved
-    to ``device``; ``seed`` may also be a key."""
+    """``jax.random.normal(PRNGKey(seed), shape, dtype)`` on ``device``;
+    ``seed`` may also be a key on the host."""
     key = seed if isinstance(seed, torch.Tensor) else prng.PRNGKey(seed)
-    return prng.normal(key, shape, dtype).to(device)
+    return threefry.normal(key, shape, dtype, device)
 
 
 class VectorQuantization(BaseNonFunctionalOp):

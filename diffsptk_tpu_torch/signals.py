@@ -5,7 +5,9 @@ the card unless the caller passes ``device="cpu"``.  The random ones draw
 from JAX's generator (``utils/prng.py``) under an explicit ``key``; without
 one, the n-th call in a process draws from the n-th key of the JAX
 package's own counter (a ``SeedSequence(0)`` spawning one child a call),
-so it draws what the JAX package's n-th call draws.
+so it draws what the JAX package's n-th call draws.  They draw on the
+device (``kernels/threefry.py``: the threefry kernel for a float32 draw
+on the card).
 
 Examples
 --------
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from .core import resolve_device
+from .kernels import threefry
 from .utils import prng
 
 
@@ -159,15 +162,16 @@ def nrand(*order, key=None, mean: float = 0, stdv: float = 1,
           var: float | None = None, dtype=None,
           device=None) -> torch.Tensor:
     """Gaussian noise of shape (..., M+1): ``jax.random.normal`` of
-    ``key``, drawn on the host and moved to ``device``."""
+    ``key``, drawn on ``device``."""
     shape = _shape(order)
     if var is not None:
         stdv = var ** 0.5
     if key is None:
         key = _KEYS.next_key()
-    x = prng.normal(_host_key(key), tuple(shape),
-                    dtype or torch.get_default_dtype())
-    return (x * stdv + mean).to(resolve_device(device))
+    x = threefry.normal(_host_key(key), tuple(shape),
+                        dtype or torch.get_default_dtype(),
+                        resolve_device(device))
+    return x * stdv + mean
 
 
 def nrand_like(x: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -180,13 +184,13 @@ def nrand_like(x: torch.Tensor, **kwargs) -> torch.Tensor:
 def rand(*order, key=None, a: float = 0, b: float = 1, dtype=None,
          device=None) -> torch.Tensor:
     """Uniform noise in [a, b) of shape (..., M+1): ``jax.random.uniform``
-    of ``key``, drawn on the host and moved to ``device``."""
+    of ``key``, drawn on ``device``."""
     shape = _shape(order)
     if key is None:
         key = _KEYS.next_key()
-    x = prng.uniform(_host_key(key), tuple(shape),
-                     dtype or torch.get_default_dtype(), minval=a, maxval=b)
-    return x.to(resolve_device(device))
+    return threefry.uniform(_host_key(key), tuple(shape),
+                            dtype or torch.get_default_dtype(),
+                            resolve_device(device), minval=a, maxval=b)
 
 
 def rand_like(x: torch.Tensor, **kwargs) -> torch.Tensor:

@@ -141,27 +141,39 @@ def bits(key: torch.Tensor, shape, width: int = 32) -> torch.Tensor:
     raise ValueError(f"width must be 32 or 64, not {width}")
 
 
+def unit32(bits32: torch.Tensor) -> torch.Tensor:
+    """float32 uniform on [0, 1) from 32-bit draws (int64 values in
+    [0, 2^32)): their top 23 bits over 2^23, exact (JAX sets them under an
+    exponent of 0 and subtracts 1)."""
+    return (bits32 >> 9).to(torch.float32) * 2.0 ** -23
+
+
 def _unit(key: torch.Tensor, shape, dtype) -> torch.Tensor:
-    """Uniform on [0, 1): the top mantissa bits of the draw over 2^nmant,
-    exact (JAX sets them under an exponent of 0 and subtracts 1)."""
+    """Uniform on [0, 1): the top mantissa bits of the draw over 2^nmant."""
     b1, b2 = _hash_shape(key, shape)
     if dtype == torch.float32:
-        return ((b1 ^ b2) >> 9).to(dtype) * 2.0 ** -23
+        return unit32(b1 ^ b2)
     if dtype == torch.float64:
         # the top 52 of bits1 << 32 | bits2, built without uint64
         return ((b1 << 20) | (b2 >> 12)).to(dtype) * 2.0 ** -52
     raise TypeError(f"uniform takes float32 or float64, not {dtype}")
 
 
-def uniform(key: torch.Tensor, shape, dtype=torch.float32,
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` on [minval, maxval).  The bounds and their
-    span are rounded to ``dtype`` on the host, as JAX computes them in it;
-    no scalar is copied to the device."""
+def to_range(unit: torch.Tensor, dtype, minval: float = 0.0,
+             maxval: float = 1.0) -> torch.Tensor:
+    """Uniform values on [0, 1) scaled to [minval, maxval) as
+    ``jax.random.uniform`` scales them.  The bounds and their span are
+    rounded to ``dtype`` on the host, as JAX computes them in it; no
+    scalar is copied to the device."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     lo, hi = np_dtype(minval), np_dtype(maxval)
-    return torch.clamp(_unit(key, shape, dtype) * float(hi - lo) + float(lo),
-                       min=float(lo))
+    return torch.clamp(unit * float(hi - lo) + float(lo), min=float(lo))
+
+
+def uniform(key: torch.Tensor, shape, dtype=torch.float32,
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` on [minval, maxval)."""
+    return to_range(_unit(key, shape, dtype), dtype, minval, maxval)
 
 
 def erfinv_giles(x: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ import diffsptk_tpu_torch as pt
 from chip_smoke import functional_cases
 from diffsptk_tpu import functional as JF
 from diffsptk_tpu_torch import functional as F
-from diffsptk_tpu_torch.core import _OPS
+from diffsptk_tpu_torch.core import _operator
 
 RNG = np.random.default_rng(62)
 # name -> (positional inputs, keyword arguments), shared with chip_smoke.py's
@@ -181,18 +181,17 @@ def test_operator_cache():
     """One operator per argument set, device and dtype; a list argument
     is a key, an array argument builds anew."""
     x = torch.as_tensor(FRAMES)
+    _operator.cache_clear()
     F.dct(x)
     F.dct(x)
-    keys = [k for k in _OPS._ops if k[0] is pt.DiscreteCosineTransform
-            and k[3] == torch.float64]
-    assert len(keys) == 1
+    info = _operator.cache_info()
+    assert (info.misses, info.hits, info.currsize) == (1, 1, 1)
     F.dct(x.float())
-    assert len([k for k in _OPS._ops
-                if k[0] is pt.DiscreteCosineTransform]) >= 2
+    assert _operator.cache_info().currsize == 2
     a = F.dfs(x, b=[1.0, 0.5])
-    n = len(_OPS._ops)
+    n = _operator.cache_info().currsize
     b = F.dfs(x, b=np.asarray([1.0, 0.5]))
-    assert len(_OPS._ops) == n
+    assert _operator.cache_info().currsize == n
     torch.testing.assert_close(a, b)
     assert F.acorr(x.float(), 4).dtype == torch.float32
     assert F.fftr(x.to(torch.complex128).real, 64).dtype == torch.complex128

@@ -51,12 +51,14 @@ from chip_smoke import (
     OPS_REST_HOST_STEPS,
     f0_tracks,
     feature_ops,
+    class_path,
     functional_kernel_rows,
     misc_inputs,
     misc_ops,
     ops_rest_inputs,
     ops_rest_ops,
     power_spectrum,
+    rel_to_max,
     row0,
     synth_speech,
 )
@@ -1175,16 +1177,21 @@ def test_lbg_two_runs_on_the_card_are_equal(cuda):
 def test_functional_takes_the_kernels(cuda):
     """mcep and smcep take the Newton kernel 10 times a call, PLP-24,
     levdur and LPC at order 24 over 7,680 frames the SPD solve kernel
-    once, as their classes do."""
+    once, as their classes do, and give their classes' values."""
     xs = torch.as_tensor(synth_speech(32, 19200), device=cuda)
     mods = {"newton": newton, "solve": solve}
     with torch.no_grad():
-        for name, fn, kernel, expected in functional_kernel_rows(torch, xs):
+        for name, fn, args, kw, kernel, expected in functional_kernel_rows(
+                torch, xs):
             mods[kernel].launches = 0
-            y = fn()
+            y = fn(*args, **kw)
             torch.cuda.synchronize()
             assert mods[kernel].launches == expected, name
             assert y.device.type == "cuda" and bool(torch.isfinite(y).all())
+            mods[kernel].launches = 0
+            want = class_path(torch, fn, args, kw)
+            assert mods[kernel].launches == expected, name
+            assert rel_to_max(torch, y, want) <= 1e-6, name
 
 
 def test_median_filter_beyond_quantile_limit(cuda):
@@ -1232,3 +1239,39 @@ def test_roots_to_polynomial_and_griffin_make_no_host_read(cuda):
             torch.cuda.set_sync_debug_mode("default")
     assert a.shape == (8, 7) and y.shape[0] == 2
     assert key.tolist() == prng.PRNGKey(7).tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_random_draws_on_the_card(cuda, dtype):
+    """nrand, rand, the initial codebook and NMF's two factors draw on the
+    card with no host read.  A float32 draw launches the threefry kernel:
+    its uniform values equal the host's bit for bit, its normals within
+    rtol 1e-6, as [K8] holds them.  A float64 draw takes the twin there:
+    uniform values bit for bit, normals within rtol 1e-12 (the card's
+    float64 erfinv need not round as the host's)."""
+    key = prng.PRNGKey(11)
+    launch = int(dtype == torch.float32)
+    torch.cuda.synchronize()
+    threefry.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        draws = (pt.nrand(6, 99, key=key, dtype=dtype, device=cuda),
+                 pt.rand(6, 99, key=key, a=-1, b=2, dtype=dtype, device=cuda),
+                 pt.VectorQuantization(9, 16, seed=3, dtype=dtype,
+                                       device=cuda).codebook.detach(),
+                 pt.NMF(30, 9, 4, dtype=dtype, device=cuda).H)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert threefry.launches == 5 * launch
+    host = (pt.nrand(6, 99, key=key, dtype=dtype, device="cpu"),
+            pt.rand(6, 99, key=key, a=-1, b=2, dtype=dtype, device="cpu"),
+            pt.VectorQuantization(9, 16, seed=3, dtype=dtype,
+                                  device="cpu").codebook.detach(),
+            pt.NMF(30, 9, 4, dtype=dtype, device="cpu").H)
+    for got, want, normal in zip(draws, host, (True, False, True, False)):
+        assert got.is_cuda and got.dtype == dtype
+        if normal:
+            torch.testing.assert_close(got.cpu(), want, atol=0,
+                                       rtol=1e-6 if launch else 1e-12)
+        else:
+            assert torch.equal(got.cpu(), want)

@@ -27,6 +27,7 @@ import diffsptk_tpu as dsp
 import diffsptk_tpu_torch as pt
 from diffsptk_tpu.utils import checkpoint as jckpt
 from diffsptk_tpu_torch import signals
+from diffsptk_tpu_torch.kernels import threefry
 from diffsptk_tpu_torch.utils import checkpoint as tckpt
 from diffsptk_tpu_torch.utils import prng
 from diffsptk_tpu_torch.utils.profiling import Throughput, trace
@@ -82,6 +83,24 @@ def test_random_signals_with_keys(dtype):
     assert pt.nrand_like(like, key=tkey).shape == (2, 6)
     assert pt.rand_like(like, key=tkey).dtype == dtype
     assert pt.rand_like(like, key=tkey).device == like.device
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_device_draws_take_the_twin_on_the_host(dtype):
+    """On a host device ``kernels.threefry``'s draws are the twin's; a
+    float32 uniform made as the card makes it, from the 32-bit draws and
+    ``prng.to_range``, equals the twin's bit for bit."""
+    key = prng.PRNGKey(13)
+    torch.testing.assert_close(
+        threefry.uniform(key, (4, 33), dtype, "cpu", -1, 3),
+        prng.uniform(key, (4, 33), dtype, -1, 3), rtol=0, atol=0)
+    torch.testing.assert_close(threefry.normal(key, (4, 33), dtype, "cpu"),
+                               prng.normal(key, (4, 33), dtype),
+                               rtol=0, atol=0)
+    card_way = prng.to_range(prng.unit32(prng.bits(key, (4, 33))),
+                             torch.float32, -1, 3)
+    assert torch.equal(card_way, prng.uniform(key, (4, 33), torch.float32,
+                                              -1, 3))
 
 
 def test_auto_key_sequence(tmp_path):

@@ -332,3 +332,48 @@ def test_spectral_convergence_of_the_signal_itself():
     s = stft(xs).abs()
     assert chip_smoke.spectral_convergence(torch, stft, s, xs) < 1e-12
     assert chip_smoke.spectral_convergence(torch, stft, s, 0 * xs) == 1.0
+
+
+def test_rel_to_max_holds_nans_to_their_places():
+    """NaNs at the same places are left out of the comparison; NaNs in
+    different places, or a leaf of another count, do not pass."""
+    w = torch.tensor([1.0, float("nan"), -4.0], dtype=torch.float64)
+    assert chip_smoke.rel_to_max(torch, w + 1e-3, w) == pytest.approx(2.5e-4)
+    assert np.isnan(chip_smoke.rel_to_max(
+        torch, torch.tensor([1.0, 2.0, float("nan")], dtype=torch.float64),
+        w))
+    assert chip_smoke.rel_to_max(torch, (w, w[:2]), (w, w[:2])) == 0.0
+    with pytest.raises(ValueError):
+        chip_smoke.rel_to_max(torch, (w,), (w, w))
+
+
+def test_class_path_runs_the_operator_once():
+    """The class path stops the functional call at its operator, builds
+    the operator afresh and runs it alone: equal to the functional call,
+    one operator run; a function with no operator returns its own
+    result."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch import functional as F
+
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((3, 8)))
+    runs = []
+    forward = pt.DiscreteCosineTransform.forward
+
+    def counted(self, *a, **kw):
+        runs.append(1)
+        return forward(self, *a, **kw)
+
+    pt.DiscreteCosineTransform.forward = counted
+    try:
+        want = F.dct(x)
+        runs.clear()
+        got = chip_smoke.class_path(torch, F.dct, (x,), {})
+    finally:
+        pt.DiscreteCosineTransform.forward = forward
+    assert len(runs) == 1
+    assert torch.equal(got, want)
+    path = torch.as_tensor([[0, 0], [1, 1]])
+    y = torch.ones(2, 1, dtype=torch.float64)
+    assert torch.equal(chip_smoke.class_path(torch, F.dtw_merge,
+                                             (y, y, path), {}),
+                       F.dtw_merge(y, y, path))
