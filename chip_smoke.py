@@ -64,8 +64,8 @@ Phases (each prints one line; any failure exits non-zero):
                site and summed); for the overlap-add, the load that the
                slot table puts on its blocks, and the kernel against
                overlap_add_grouped, its computation in torch in the same
-               order (bit for bit); for the draws, bits equal to the
-               twin's and normals within rtol 1e-6;
+               order (bit for bit); for the draws, bits and normals
+               equal to the twin's bit for bit;
  14. world  -- WorldVocoder(ap_algorithm="d4c").analysis_synthesis
                (BASELINE.json configs[3], YIN for its neural tracker) on
                32 x 19,200 float32 samples: launch counts, the kernel path
@@ -178,6 +178,23 @@ Phases (each prints one line; any failure exits non-zero):
                the flagship's 32 x 240 frames;
  36. io     -- a wav and a checkpoint round trip, Throughput of the
                flagship call and a profiler trace;
+ 37. sharded -- the sharded classes (diffsptk_tpu_torch/parallel/)
+               through an NCCL process group of world size 1 and a
+               (1, 1) mesh, float32 at full width: the mel-cepstral
+               vocoder (round trip, analysis, both synthesis halos) and
+               WORLD with TANDEM (round trip, analysis, synthesis) on
+               32 x 19,200, the all-pole filter (M 24, P 80) on the same,
+               the six filterbanks on [battery]'s 8 x 76,800 and the
+               data-parallel GMM on [learners]' 76,800 joint vectors;
+               each against the one-rank class (SHARDED_BARS), its kernel
+               launches (SHARDED_LAUNCHES: B1 10 an analysis; WORLD B6 4,
+               B7 1, threefry 2), no host read but the GMM's one a step,
+               the median ms a call and busy shares; the vocoder's row 0
+               within 1e-2 of max|y| of float64 on the CPU;
+ 38. sharded-multi -- with two cards or more, one NCCL rank a card on a
+               (1, n) mesh, each class's unshard against one card at the
+               same bars (the GMM also fitted in float64 on both sides);
+               with one card, a line that says it did not run;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -1581,8 +1598,8 @@ def check_threefry(torch, sites, card: str) -> dict:
     """[K8]: the threefry kernel against its twin (utils/prng.py, on the
     card) at every draw of one [world] call: the windowed waveforms'
     dithers (flat draws under PRNGKey(0)) and the synthesis's slot noise.
-    Bits equal; normals within rtol 1e-6 (the kernel's Horner steps fuse
-    their multiply-adds, the twin's do not).  Times of all the draws
+    Bits and normals equal bit for bit (the kernel and the twin both copy
+    XLA CPU's log1p and its fused multiply-adds).  Times of all the draws
     together; bound from the output's bytes and the hashes' operations."""
     from diffsptk_tpu_torch.kernels import threefry
     from diffsptk_tpu_torch.utils import prng
@@ -1626,9 +1643,9 @@ def check_threefry(torch, sites, card: str) -> dict:
         got, want = draw(), twin()
         torch.cuda.synchronize()
         site_rel = float(((got - want).abs() / want.abs()).max())
-        check(site_rel <= 1e-6,
-              f"K8 {kind} {tuple(shape)}: normals {site_rel} from the "
-              f"twin's (rtol 1e-6)")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"K8 {kind} {tuple(shape)}: normals differ from the twin's "
+              f"(at most {site_rel} relative)")
         rel = max(rel, site_rel)
         err = max(err, float((got - want).abs().max()))
         ms += cuda_ms(torch, draw, 50)
@@ -1642,8 +1659,8 @@ def check_threefry(torch, sites, card: str) -> dict:
         shapes.append(f"{kind} {tuple(shape)}")
     by = bound_ms(nbytes, ops)[1]
     print(f"[K8] {len(sites)} draws of one [world] call ("
-          + ", ".join(shapes) + f"): bits equal to the twin's, normals "
-          f"within {rel:.3e} relative (tol 1e-6), max abs {err:.3e}; all "
+          + ", ".join(shapes) + f"): bits and normals equal to the twin's "
+          f"bit for bit ({rel:.3e} relative, max abs {err:.3e}); all "
           f"draws: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, library "
           f"none (torch.randn draws other numbers), {nbytes / 1e6:.2f} MB "
           f"out, {ops / 1e9:.3f} G operations, bound {bound:.5f} ms ({by}); "
@@ -3966,7 +3983,7 @@ def run_io(torch, xs, params: dict, card: str) -> None:
     median; ``trace`` of one flagship call (a non-empty chrome trace);
     ``nrand_like`` and ``rand_like`` of the flagship's input drawn on the
     card (one threefry launch each) against the same draws on the host:
-    uniform bit for bit, normals within rtol 1e-6 (as [K8])."""
+    uniform and normals bit for bit (as [K8])."""
     import os
     import tempfile
 
@@ -3983,11 +4000,12 @@ def run_io(torch, xs, params: dict, card: str) -> None:
             pt.rand_like(xs.cpu(), key=key, a=-1, b=2))
     rel_n = float(((noise[0].cpu() - host[0]).abs() / host[0].abs()).max())
     same_u = torch.equal(noise[1].cpu(), host[1])
+    same_n = torch.equal(noise[0].cpu(), host[0])
     check(draws == 2 and all(v.is_cuda for v in noise) and same_u
-          and rel_n <= 1e-6,
+          and same_n,
           f"[io] signals on the card: {draws} threefry launches (expected "
           f"2), uniform {'equal' if same_u else 'differs'}, normals "
-          f"{rel_n:.3e} (rtol 1e-6)")
+          f"{'equal' if same_n else 'differ'} ({rel_n:.3e} relative)")
 
     voc = pt.MelCepstralVocoder(cascade="fused", device="cuda",
                                 dtype=torch.float32)
@@ -4021,8 +4039,448 @@ def run_io(torch, xs, params: dict, card: str) -> None:
           f"CUDA-event median {event_ms:.3f} ms ({xs.numel() / event_ms * 1e3:.1f} "
           f"samples/s); trace {size} bytes; nrand_like and rand_like of "
           f"{tuple(xs.shape)} drawn on the card ({draws} threefry launches): "
-          f"uniform equal to the host's draw, normals within {rel_n:.3e} "
-          f"relative (tol 1e-6) | {card}", flush=True)
+          f"uniform and normals equal to the host's draws bit for bit "
+          f"| {card}", flush=True)
+
+
+# [sharded]'s bars: each sharded class on the card against the port's
+# one-rank class on the same card inputs (and [sharded-multi]'s unshard
+# against one card), relative to the largest value (rel_to_max): ten
+# times the larger CPU float32 reading of the same pairs, one rank and N
+# ranks, or ten times float32's epsilon where the readings are smaller
+# (`python3 tools/torch_sharded_bars.py 2 --multi 2` and `4 --multi 4`:
+# gloo ranks on the CPU).  Where one rank holds everything, most pairs
+# compute the same operations and read 0.  The GMM's, on [learners]'
+# 76,800 frames (`python3 tools/torch_sharded_bars.py 2 --multi 4
+# --gmm-only`): its float32 fit (w, mu, sigma, ll) on 4 ranks read 7.0e-5
+# from one rank, and its float64 fit 3.8e-13 (gmm64, [sharded-multi]).
+SHARDED_BARS = {
+    "vocoder": 1.7e-2, "vocoder-analyze": 1.2e-6, "mlsa-per-stage": 2.5e-5,
+    "mlsa-bulk": 2.5e-5, "world": 4.4e-3, "world-analyze": 7.5e-6,
+    "world-synthesize": 2.2e-5, "poledf": 9.4e-5, "pqmf": 1.2e-6,
+    "ipqmf": 1.2e-6, "mdct": 1.2e-6, "imdct": 4.2e-6, "cqt": 1.2e-6,
+    "icqt": 1.2e-6, "gmm": 7.0e-4, "gmm64": 3.8e-12,
+}
+# launches a sharded call makes of each kernel on the card (float32), and
+# the host reads it may make (the GMM's: one a step)
+SHARDED_ITERS = {"gmm": 3}
+SHARDED_LAUNCHES = {
+    "vocoder": {"newton": 10}, "vocoder-analyze": {"newton": 10},
+    "world": {"gather": 4, "ola": 1, "threefry": 2},
+    "world-analyze": {"gather": 4, "threefry": 1},
+    "world-synthesize": {"ola": 1, "threefry": 1},
+}
+SHARDED_READS = {"gmm": SHARDED_ITERS["gmm"]}
+
+
+def sharded_joint(torch, data):
+    """[learners]' centred joint vectors (voice conversion's), which the
+    data-parallel GMM fits."""
+    joint = torch.cat([data["mc_x"], data["mc_y"]], -1)
+    return (joint - joint.mean(0)).contiguous()
+
+
+def sharded_inputs(torch, xw, xb, joint, device, dtype) -> dict:
+    """[sharded]'s global inputs: speech rows of the flagship's length
+    (xw), [battery]'s rows (xb), the GMM's rows (joint), and what the
+    one-rank classes make of them for the synthesis and inverse cases:
+    the vocoder's mel-cepstra, WORLD's even frames, the LPC chain's
+    coefficients and residual, the PQMF subbands, the MDCT and the CQT
+    frames."""
+    import diffsptk_tpu_torch as pt
+
+    kw = dict(device=device, dtype=dtype)
+    T = xb.shape[-1]
+    with torch.no_grad():
+        f0, ap, sp = pt.WorldVocoder(80, 16000, 1024, ap_algorithm="tandem",
+                                     **kw).analyze(xw, even_frames=True)
+        a, e, _ = lpc_chain(torch, 24, device, dtype)[0](xw)
+        return {
+            "xw": xw, "xb": xb, "joint": joint,
+            "mc": pt.MelCepstralVocoder(cascade="fused", **kw).analyze(xw),
+            "f0": f0, "ap": ap, "sp": sp, "a": a, "e": e,
+            "sub": pt.PQMF(4, 47, **kw)(xb),
+            "mdct": pt.MDCT(256, **kw)(xb),
+            "cq": pt.CQT(64, 16000, n_bin=24, **kw)(xb)[..., :T // 64, :]}
+
+
+# each input's (time dimension, trailing entries on the last time rank);
+# every one is cut over the batch axis along its first dimension
+SHARDED_LAYOUT = {"xw": (-1, 0), "xb": (-1, 0), "joint": (None, 0),
+                  "mc": (-2, 0), "f0": (-1, 0), "ap": (-2, 0),
+                  "sp": (-2, 0), "a": (-2, 0), "e": (-1, 0), "sub": (-1, 0),
+                  "mdct": (-2, 1), "cq": (-2, 0)}
+# each case's output's time dimension (None: the GMM's parameters, the
+# same on every rank)
+SHARDED_OUT_DIM = {"vocoder-analyze": -2, "world-analyze": (-1, -2, -2),
+                   "mdct": -2, "cqt": -2, "gmm": None, "gmm64": None}
+
+
+def sharded_cases(torch, mesh, inp: dict, device, dtype,
+                  rows_axis: str = "dp") -> dict:
+    """[sharded]'s pairs: name -> (the sharded call, the one-rank call),
+    each a function of no arguments, on ``inp``: the rank's blocks of
+    ``sharded_inputs`` (the whole inputs where one rank holds
+    everything).  The GMM's rows are spread over ``rows_axis``."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.parallel import (
+        ShardedAllPoleDigitalFilter,
+        ShardedMelCepstralVocoder,
+        ShardedWorldVocoder,
+    )
+    from diffsptk_tpu_torch.parallel.filterbanks import (
+        ShardedCQT,
+        ShardedICQT,
+        ShardedIMDCT,
+        ShardedIPQMF,
+        ShardedMDCT,
+        ShardedPQMF,
+    )
+
+    kw = dict(device=device, dtype=dtype)
+    xw, xb, joint = inp["xw"], inp["xb"], inp["joint"]
+    T = xb.shape[-1]
+    voc = ShardedMelCepstralVocoder(mesh, **kw)
+    # the one-rank cascade in the sharded one's form, the folded matmul
+    # plans (the cascade kernel computes it as a direct FIR)
+    voc1 = pt.MelCepstralVocoder(cascade="folded", **kw)
+    wv = ShardedWorldVocoder(mesh, 80, 16000, 1024, **kw)
+    wv1 = pt.WorldVocoder(80, 16000, 1024, ap_algorithm="tandem", **kw)
+    poledf = ShardedAllPoleDigitalFilter(mesh, 24, 80)
+    poledf1 = pt.AllPoleDigitalFilter(24, 80, **kw)
+    # each pair's operators built once: a call copies nothing to the card
+    fb = {"pqmf": (ShardedPQMF(mesh, 4, 47, **kw), pt.PQMF(4, 47, **kw)),
+          "ipqmf": (ShardedIPQMF(mesh, 4, 47, **kw), pt.IPQMF(4, 47, **kw)),
+          "mdct": (ShardedMDCT(mesh, 256, **kw), pt.MDCT(256, **kw)),
+          "imdct": (ShardedIMDCT(mesh, 256, **kw), pt.IMDCT(256, **kw)),
+          "cqt": (ShardedCQT(mesh, 64, 16000, n_bin=24, **kw),
+                  pt.CQT(64, 16000, n_bin=24, **kw)),
+          "icqt": (ShardedICQT(mesh, 64, 16000, n_bin=24, **kw),
+                   pt.ICQT(64, 16000, n_bin=24, **kw))}
+    return {
+        "vocoder": (lambda: voc.analysis_synthesis(xw),
+                    lambda: voc1.analysis_synthesis(xw)),
+        "vocoder-analyze": (lambda: voc.analyze(xw),
+                            lambda: voc1.analyze(xw)),
+        "mlsa-per-stage": (lambda: voc.synthesize(xw, inp["mc"]),
+                           lambda: voc1.synthesize(xw, inp["mc"])),
+        "mlsa-bulk": (lambda: voc.synthesize(xw, inp["mc"], halo="bulk"),
+                      lambda: voc1.synthesize(xw, inp["mc"])),
+        "world": (lambda: wv.analysis_synthesis(xw),
+                  lambda: wv1.synthesize(*wv1.analyze(
+                      xw, even_frames=True))),
+        "world-analyze": (lambda: wv.analyze(xw),
+                          lambda: wv1.analyze(xw, even_frames=True)),
+        "world-synthesize": (
+            lambda: wv.synthesize(inp["f0"], inp["ap"], inp["sp"]),
+            lambda: wv1.synthesize(inp["f0"], inp["ap"], inp["sp"])),
+        "poledf": (lambda: poledf(inp["e"], inp["a"]),
+                   lambda: poledf1(inp["e"], inp["a"])),
+        "pqmf": (lambda: fb["pqmf"][0](xb), lambda: fb["pqmf"][1](xb)),
+        "ipqmf": (lambda: fb["ipqmf"][0](inp["sub"]),
+                  lambda: fb["ipqmf"][1](inp["sub"])),
+        "mdct": (lambda: fb["mdct"][0](xb), lambda: fb["mdct"][1](xb)),
+        "imdct": (lambda: fb["imdct"][0](inp["mdct"]),
+                  lambda: fb["imdct"][1](inp["mdct"])),
+        "cqt": (lambda: fb["cqt"][0](xb),
+                lambda: fb["cqt"][1](xb)[..., :T // 64, :]),
+        "icqt": (lambda: fb["icqt"][0](inp["cq"]),
+                 lambda: fb["icqt"][1](inp["cq"], out_length=T)),
+        "gmm": sharded_gmm(torch, mesh, joint, device, dtype, rows_axis),
+    }
+
+
+def sharded_gmm(torch, mesh, joint, device, dtype, rows_axis: str = "dp"):
+    """The data-parallel GMM's pair: (the fit of ``DataParallelGMM`` on
+    this rank's rows ``joint``, the one-rank GMM's fit on them), each a
+    function of no arguments returning (w, mu, sigma, ll), both from the
+    float32 model's initial parameters, in ``dtype``."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.parallel import DataParallelGMM
+
+    kw = dict(n_iter=SHARDED_ITERS["gmm"], eps=0, var_type="full",
+              block_size=[25, 25], device=device)
+    start = pt.GMM(49, 32, dtype=torch.float32, **kw)
+    init = tuple(p.to(dtype) for p in (start.w, start.mu, start.sigma))
+    x = joint.to(dtype)
+
+    def fit(model):
+        def run():
+            model.set_params(init)
+            (w, mu, sigma), ll = model(x)
+            return w, mu, sigma, ll
+        return run
+
+    return (fit(DataParallelGMM(mesh, 49, 32, batch_axis_name=rows_axis,
+                                dtype=dtype, **kw)),
+            fit(pt.GMM(49, 32, dtype=dtype, **kw)))
+
+
+def sharded_counters():
+    from diffsptk_tpu_torch.kernels import gather, newton, ola, threefry
+    return {"newton": newton, "gather": gather, "ola": ola,
+            "threefry": threefry}
+
+
+def run_sharded(torch, xw, xb, joint, card: str) -> dict:
+    """[sharded]: the sharded classes (parallel/) through an NCCL process
+    group of world size 1 and a (1, 1) CUDA mesh, at full width in
+    float32: the mel-cepstral vocoder on the flagship's 32 x 19,200 (its
+    round trip, its analysis, its synthesis with both halos), WORLD with
+    TANDEM on 32 x 19,200 (round trip, analysis, synthesis), the all-pole
+    filter at M = 24, P = 80 on the same, the six filterbanks on
+    [battery]'s 8 x 76,800 and the data-parallel GMM on [learners]' 76,800
+    joint vectors (SHARDED_ITERS EM steps).  Each against the port's
+    one-rank class on the card (SHARDED_BARS), with each kernel's
+    launches a call (SHARDED_LAUNCHES) and the host reads
+    (``HostReads``: none but the GMM's, one a step); the vocoder's round
+    trip also against a float64 CPU run of row 0 (1e-2 of max|y|); the
+    median ms a call and, for the round trips, the filter, the battery
+    and the GMM, the busy share.  Returns each kernel's launches in the
+    vocoder's and WORLD's round trips."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.parallel import ShardedMelCepstralVocoder
+    from diffsptk_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, 1))
+        pairs = sharded_cases(torch, mesh, sharded_inputs(
+            torch, xw, xb, joint, "cuda", torch.float32), "cuda",
+            torch.float32)
+        counters = sharded_counters()
+        busy_of = ("vocoder", "world", "poledf", "cqt", "gmm")
+        seen = {}
+        with torch.no_grad():
+            for name, (fn, ref) in pairs.items():
+                fn()                                     # plans, caches
+                torch.cuda.synchronize()
+                for mod in counters.values():
+                    mod.launches = 0
+                _, got, reads = timed_reads(torch, fn, "cuda")
+                launches = {k: mod.launches for k, mod in counters.items()
+                            if mod.launches}
+                want = ref()
+                err = rel_to_max(torch, got, want)
+                check(err <= SHARDED_BARS[name],
+                      f"[sharded] {name}: {err:.3e} from the one-rank "
+                      f"class (bar {SHARDED_BARS[name]})")
+                expected = SHARDED_LAUNCHES.get(name, {})
+                check(launches == expected,
+                      f"[sharded] {name}: launches {launches}, expected "
+                      f"{expected}")
+                allowed = SHARDED_READS.get(name, 0)
+                check(reads.count == allowed,
+                      f"[sharded] {name}: {reads.count} host reads "
+                      f"(allowed {allowed}) at {reads.where}")
+                calls = cuda_call_ms(torch, fn, 3 if name == "gmm" else 10,
+                                     warm=1)
+                med = float(np.median(calls))
+                busy = ""
+                if name in busy_of:
+                    b, _, _, _, wall = profile_chain(torch, fn, calls=2)
+                    busy = ", " + busy_share(b, wall)
+                seen[name] = launches
+                print(f"[sharded] {name}: {err:.3e} of max from the "
+                      f"one-rank class (bar {SHARDED_BARS[name]}), "
+                      f"launches {launches or 'none'}, host reads "
+                      f"{reads.count} (allowed {allowed}), median "
+                      f"{med:.3f} ms a call{busy} | {card}", flush=True)
+            # the flagship's round trip against float64 on the CPU: row 0,
+            # all of its 19,200 samples
+            x1 = xw[:1]
+            voc = ShardedMelCepstralVocoder(mesh, device="cuda",
+                                            dtype=torch.float32)
+            y1 = voc.analysis_synthesis(x1).double().cpu()
+            y64 = pt.MelCepstralVocoder(cascade="folded", device="cpu",
+                                        dtype=torch.float64
+                                        ).analysis_synthesis(
+                                            x1.double().cpu())
+            err64 = float((y1 - y64).abs().max() / y64.abs().max())
+            check(err64 <= 1e-2,
+                  f"[sharded] vocoder row 0: {err64:.3e} of max|y| from "
+                  f"float64 on the CPU (bar 1e-2)")
+        print(f"[sharded] NCCL world size 1, mesh (1, 1), float32, "
+              f"{len(pairs)} pairs within their bars; the vocoder's row 0 "
+              f"against float64 on the CPU {err64:.3e} of max|y| (bar "
+              f"1e-2) | {card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return {"vocoder": seen["vocoder"], "world": seen["world"]}
+
+
+# [sharded-multi]'s classes: all but the synthesis-only and inverse ones
+# [sharded] holds already, and the CQT, whose halo at [battery]'s
+# configuration (295,168 samples) exceeds a block of 76,800 / n
+SHARDED_MULTI = ("vocoder", "world", "poledf", "pqmf", "mdct", "icqt",
+                 "gmm")
+
+
+def sharded_multi_rank(rank: int, world: int, store_path: str, backend: str,
+                       device: str, inputs: dict, names: tuple, out) -> None:
+    """One rank of [sharded-multi]: its blocks of ``inputs`` (numpy,
+    ``sharded_inputs``'s) through the sharded classes ``names`` on a
+    (1, world) mesh, the GMM's rows spread over its time axis (and its fit
+    again in float64, ``gmm64``), gathered back with ``unshard``; rank 0
+    puts the results (numpy) on ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from diffsptk_tpu_torch.parallel import make_mesh, shard, unshard
+
+    dev = torch.device(device, rank) if device == "cuda" else "cpu"
+    if device == "cuda":
+        torch.cuda.set_device(dev)
+        # full fp32, as main() sets it for the one-card run
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        backend, store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, world), device_type=device)
+        local = {}
+        for k, v in inputs.items():
+            t = torch.as_tensor(v, device=dev)
+            time_dim, tail = SHARDED_LAYOUT[k]
+            local[k] = (shard(t, mesh, time_dim=None, batch_dim=0,
+                              batch_axis_name="tp") if k == "joint"
+                        else shard(t, mesh, time_dim=time_dim, tail=tail))
+        pairs = sharded_cases(torch, mesh, local, dev, torch.float32,
+                              rows_axis="tp")
+        if "gmm" in names:
+            pairs["gmm64"] = sharded_gmm(torch, mesh, local["joint"], dev,
+                                         torch.float64, rows_axis="tp")
+        res = {}
+        with torch.no_grad():
+            for name in names + ("gmm64",) * ("gmm" in names):
+                y = pairs[name][0]()
+                dim = SHARDED_OUT_DIM.get(name, -1)
+                res[name] = ([v.cpu().numpy() for v in y] if dim is None
+                             else unshard(y, mesh, time_dim=dim
+                                          ).cpu().numpy())
+        if rank == 0:
+            out.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def gmm_leaves(torch, got, want) -> list:
+    """Each leaf of two GMM fits (w, mu, sigma, ll) apart, relative to
+    the leaf's max|want| (``rel_to_max``), on the CPU in float64."""
+    return [rel_to_max(torch, torch.as_tensor(a).cpu().double(),
+                       torch.as_tensor(b).cpu().double())
+            for a, b in zip(got, want)]
+
+
+def run_sharded_multi(torch, xw, xb, joint, card: str, device="cuda",
+                      world: int | None = None,
+                      names: tuple = SHARDED_MULTI) -> dict:
+    """[sharded-multi]: with two cards or more, one NCCL rank a card and a
+    (1, n) mesh; each class's ``unshard``ed output against the one-card
+    output of the same class on the same inputs at [sharded]'s bars.
+    With one card it says that it did not run (NCCL takes one rank a
+    card).  ``device="cpu"`` and ``world`` run it on gloo ranks instead
+    (tests)."""
+    import datetime
+    import multiprocessing
+    import os
+    import queue
+    import tempfile
+
+    import torch.distributed as dist
+
+    from diffsptk_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count() if world is None else world
+    if n < 2:
+        print(f"[sharded-multi] not run: {n} card present, and NCCL takes "
+              f"one rank a card | {card}", flush=True)
+        return {}
+    backend = "nccl" if device == "cuda" else "gloo"
+    inputs = {k: v.cpu().numpy() for k, v in sharded_inputs(
+        torch, xw, xb, joint, device, torch.float32).items()
+        if k in ("xw", "xb", "joint", "a", "e", "cq")}
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=sharded_multi_rank,
+                             args=(r, n, os.path.join(d, "store"), backend,
+                                   device, inputs, names, out))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        got, deadline = None, time.time() + 600
+        try:
+            # wait for rank 0's result, but not for ranks that died
+            while got is None and time.time() < deadline and not any(
+                    p.exitcode not in (None, 0) for p in procs):
+                try:
+                    got = out.get(timeout=5)
+                except queue.Empty:
+                    pass
+        finally:
+            for p in procs:
+                p.join(timeout=60 if got is not None else 5)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    check(got is not None and all(p.exitcode == 0 for p in procs),
+          f"[sharded-multi] ranks exited with {[p.exitcode for p in procs]}"
+          f"{'' if got is not None else ', no result from rank 0'}")
+    dist.init_process_group(
+        backend, store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        inp = {k: torch.as_tensor(v, device=device)
+               for k, v in inputs.items()}
+        mesh = make_mesh((1, 1), device_type=device)
+        pairs = sharded_cases(torch, mesh, inp, device, torch.float32)
+        if "gmm" in names:
+            pairs["gmm64"] = sharded_gmm(torch, mesh, inp["joint"], device,
+                                         torch.float64)
+        errs, gmm = {}, {}
+        with torch.no_grad():
+            for name in names:
+                one = pairs[name][0]()
+                if name == "gmm":
+                    one64 = pairs["gmm64"][0]()
+                    gmm = {"n32-one32": gmm_leaves(torch, got["gmm"], one),
+                           "n64-one64": gmm_leaves(torch, got["gmm64"],
+                                                   one64),
+                           "n32-one64": gmm_leaves(torch, got["gmm"], one64),
+                           "one32-one64": gmm_leaves(torch, one, one64)}
+                    errs["gmm"] = max(gmm["n32-one32"])
+                    errs["gmm64"] = max(gmm["n64-one64"])
+                else:
+                    errs[name] = rel_to_max(torch, torch.as_tensor(
+                        got[name]), one.cpu())
+    finally:
+        dist.destroy_process_group()
+    print(f"[sharded-multi] {n} ranks, mesh (1, {n}), each class's "
+          f"unshard against one card (bar): "
+          + "; ".join(f"{k} {v:.3e} ({SHARDED_BARS[k]})"
+                      for k, v in errs.items()) + f" | {card}", flush=True)
+    if gmm:
+        print(f"[sharded-multi] the GMM's w, mu, sigma, ll relative to "
+              f"their max, {n} ranks (n) and one (one), float32 (32) and "
+              f"float64 (64) fits from one start: "
+              + "; ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in vals)
+                          for k, vals in gmm.items()) + f" | {card}",
+              flush=True)
+    for name, err in errs.items():
+        check(err <= SHARDED_BARS[name],
+              f"[sharded-multi] {name}: {err:.3e} from one card (bar "
+              f"{SHARDED_BARS[name]})")
+    return errs
 
 
 def main() -> int:
@@ -4417,10 +4875,18 @@ def main() -> int:
     #     through it), and the utilities
     data = learner_data(torch, 320, 19200, dev)
     gmm_params = run_learners(torch, data, card)
+    joint = sharded_joint(torch, data)
     del data
     run_misc(torch, xw, card)
     run_functional(torch, xw, card)
     run_io(torch, xw, gmm_params, card)
+
+    # 37. and 38. the sharded paths through NCCL: one rank on this card,
+    #     then one rank a card where there are several
+    xb = torch.as_tensor(synth_speech(8, 76800), device=dev)
+    run_sharded(torch, xw, xb, joint, card)
+    run_sharded_multi(torch, xw, xb, joint, card)
+    del xb, joint
 
     kernels = []
     meta = {

@@ -65,7 +65,53 @@ __device__ __forceinline__ uint32_t bits32(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
-// XLA's ErfInv32 (Giles): |x| < 1 here, so no infinite edge.
+// XLA CPU's float32 log1p (utils/prng.py:log1p_xla, where the constants
+// are derived): every multiply-add the CPU backend fuses is __fmaf_rn, every
+// other product and sum rounds on its own (__fmul_rn / __fadd_rn, which nvcc
+// never contracts), so the kernel's normals equal JAX's bit for bit.
+__device__ __forceinline__ float log1p_xla(float x) {
+  if (fabsf(x) < 0.414213568f) {
+    const float x2 = __fmul_rn(x, x);
+    const float t0 = __fmul_rn(x, 0.0f);
+    float den = __fadd_rn(t0, 1.0f);
+    den = __fmaf_rn(den, x, 15.0629091f);
+    den = __fmaf_rn(den, x, 83.0475693f);
+    den = __fmaf_rn(den, x, 221.762405f);
+    den = __fmaf_rn(den, x, 309.098724f);
+    den = __fmaf_rn(den, x, 216.427887f);
+    den = __fmaf_rn(den, x, 60.1186600f);
+    float num = __fadd_rn(t0, 4.52700006e-05f);
+    num = __fmaf_rn(num, x, 0.498541027f);
+    num = __fmaf_rn(num, x, 6.57873249f);
+    num = __fmaf_rn(num, x, 29.9119186f);
+    num = __fmaf_rn(num, x, 60.9496689f);
+    num = __fmaf_rn(num, x, 57.1129646f);
+    num = __fmaf_rn(num, x, 20.0395527f);
+    const float q = __fdiv_rn(num, den);
+    return __fadd_rn(x, __fmaf_rn(x2, -0.5f, __fmul_rn(__fmul_rn(x, x2), q)));
+  }
+  const float u = fmaxf(__fadd_rn(x, 1.0f), 0x1p-126f);
+  const int word = __float_as_int(u);
+  float e = __fadd_rn(static_cast<float>((word >> 23) - 127), 1.0f);
+  const float m = __int_as_float((word & 0x7FFFFF) | 0x3F000000);
+  const bool below = m < 0.707106769f;
+  const float r = __fadd_rn(__fadd_rn(m, -1.0f), below ? m : 0.0f);
+  e = __fadd_rn(e, below ? -1.0f : 0.0f);
+  const float z = __fmul_rn(r, r);
+  const float r3 = __fmul_rn(z, r);
+  const float a =
+      __fmaf_rn(__fmaf_rn(r, 0.0703768358f, -0.115146101f), r, 0.116769984f);
+  const float b =
+      __fmaf_rn(__fmaf_rn(r, -0.12420141f, 0.142493233f), r, -0.166680574f);
+  const float c =
+      __fmaf_rn(__fmaf_rn(r, 0.200007141f, -0.24999994f), r, 0.333333313f);
+  float t = __fmaf_rn(__fmaf_rn(a, r3, b), r3, c);
+  t = __fmaf_rn(t, r3, __fmul_rn(e, -2.12194442e-4f));
+  return __fmaf_rn(e, 0.693359375f, __fadd_rn(__fmaf_rn(z, -0.5f, r), t));
+}
+
+// XLA's ErfInv32 (Giles), its Horner steps fused: |x| < 1 here, so no
+// infinite edge.
 __device__ __forceinline__ float erfinv_giles(float x) {
   constexpr float kSmall[9] = {2.81022636e-08f, 3.43273939e-07f,
                                -3.5233877e-06f, -4.39150654e-06f,
@@ -77,13 +123,13 @@ __device__ __forceinline__ float erfinv_giles(float x) {
                                0.00573950773f,   -0.0076224613f,
                                0.00943887047f,   1.00167406f,
                                2.83297682f};
-  float w = -log1pf(-x * x);
+  float w = -log1p_xla(-__fmul_rn(x, x));
   const bool small = w < 5.0f;
-  w = small ? w - 2.5f : sqrtf(w) - 3.0f;
+  w = small ? __fadd_rn(w, -2.5f) : __fadd_rn(__fsqrt_rn(w), -3.0f);
   float p = small ? kSmall[0] : kLarge[0];
 #pragma unroll
-  for (int i = 1; i < 9; ++i) p = (small ? kSmall[i] : kLarge[i]) + p * w;
-  return p * x;
+  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, w, small ? kSmall[i] : kLarge[i]);
+  return __fmul_rn(p, x);
 }
 
 __device__ __forceinline__ float normal_of(uint32_t b) {

@@ -128,6 +128,62 @@ def plans(nfft: int, m: int, p: int, advance: int, dtype, device):
     return t(Ffwd), t(Ginv_re), t(Ginv_im), r0, n_blk
 
 
+@functools.lru_cache(maxsize=None)
+def stage_plans(nfft: int, m: int, p: int, advance: int = 0):
+    """Folded forward plans plus the *unblended* inverse plan, for callers
+    that blend a frame with the next one themselves because the next one
+    may live on a neighbour rank (parallel/vocoder.py).  Ffwd as in
+    ``cascade_plan``; G2 evaluates the inverse DFT at the 2P blend slots
+    M .. M+2P-1 with no lerp weights folded in."""
+    Ffwd, _, _, r0, n_blk = cascade_plan(nfft, m, p, advance)
+    K = nfft // 2 + 1
+    w = np.full(K, 2.0)
+    w[0] = 1.0
+    if nfft % 2 == 0:
+        w[-1] = 1.0
+    k = np.arange(K)
+    slots = m + np.arange(2 * p)
+    a = 2.0 * np.pi * np.outer(k, slots) / nfft
+    G2_re = w[:, None] * np.cos(a) / nfft
+    G2_im = -w[:, None] * np.sin(a) / nfft
+    return Ffwd, G2_re, G2_im, r0, n_blk
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_tensors(nfft: int, m: int, p: int, advance: int, dtype, device):
+    Ffwd, G2_re, G2_im, _, _ = stage_plans(nfft, m, p, advance)
+    lam = np.arange(p) / p
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (Ffwd, G2_re, G2_im, lam))
+
+
+def stage_apply(xq_ext: torch.Tensor, cre: torch.Tensor, cim: torch.Tensor,
+                nfft: int, m: int, p: int,
+                advance: int = 0) -> torch.Tensor:
+    """One folded MLSA stage on pre-extended frame rows.
+
+    xq_ext (..., n_out + n_blk, P): the local frames extended by r0 rows
+    on the left and n_blk - r0 on the right (neighbour halos, or zeros at
+    the global edges -- the zeros the plan's dead rows encode).  cre/cim
+    (..., n_out + 1, K): coefficient spectra of the local frames plus the
+    right neighbour's first frame.  Returns the blended (..., n_out, P)
+    stage output."""
+    F_, Gre, Gim, lam = _stage_tensors(nfft, m, p, advance, xq_ext.dtype,
+                                       xq_ext.device)
+    _, _, _, _, n_blk = stage_plans(nfft, m, p, advance)
+    K = nfft // 2 + 1
+    n_out = xq_ext.shape[-2] - n_blk
+    X = None
+    for r in range(n_blk):
+        part = torch.matmul(xq_ext[..., r:r + n_out + 1, :], F_[r])
+        X = part if X is None else X + part
+    Xre, Xim = X[..., :K], X[..., K:]
+    Yre = Xre * cre - Xim * cim
+    Yim = Xre * cim + Xim * cre
+    U = torch.matmul(Yre, Gre) + torch.matmul(Yim, Gim)  # (.., n_out+1, 2P)
+    return U[..., :-1, p:] * (1 - lam) + U[..., 1:, :p] * lam
+
+
 def _pad_rows(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
     """Zero rows before/after along the frame axis (-2)."""
     return F.pad(x, (0, 0, before, after))

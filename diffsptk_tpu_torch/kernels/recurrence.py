@@ -13,8 +13,10 @@
   convolution plus the all-pole recurrence.
 
 The JAX package computes all but the first-order scan with XLA alone, so
-they stay plain torch here.  The time-sharded path (``axis_name``) is not
-ported yet and raises ``NotImplementedError``.
+they stay plain torch here.  With ``axis_name`` (the time axis of a
+sharded sequence: a process group, a ``parallel.mesh.Axis``, or a
+(mesh, dimension name) pair) ``sample_wise_lpc`` runs the blocked form
+across ranks, exactly (``parallel/filters.py``).
 """
 
 from __future__ import annotations
@@ -23,12 +25,6 @@ import torch
 import torch.nn.functional as F
 
 from .scan import DTYPES, first_order_scan_plain, scan_diff
-
-
-def _no_sharding(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the time-sharded path (axis_name) is not ported yet")
 
 
 def first_order_recurrence(x: torch.Tensor, p: torch.Tensor,
@@ -58,12 +54,16 @@ def sample_wise_lpc(x: torch.Tensor, a: torch.Tensor,
 
     x: (..., T); a: (..., T, M); zi: optional (..., M) initial history
     ordered [y[-1], y[-2], ...].  Long sequences take the exact
-    block-parallel form; ``block=None`` forces the per-sample loop.
+    block-parallel form; ``block=None`` forces the per-sample loop.  With
+    ``axis_name`` the sequence is this rank's block of a time-sharded one
+    and the blocked form carries the state across ranks.
     """
-    _no_sharding(axis_name)
     M = a.shape[-1]
     if M == 0:
         return x
+    if axis_name is not None:
+        return blocked_sample_wise_lpc(x, a, zi=zi, block=block or 256,
+                                       axis_name=axis_name)
     if M == 1:
         if zi is not None:
             x = torch.cat([x[..., :1] - a[..., :1, 0] * zi[..., :1],
@@ -99,12 +99,23 @@ def blocked_sample_wise_lpc(x: torch.Tensor, a: torch.Tensor,
     initial history of each block then follows from a short sequential
     recursion of (M x M) transition maps across blocks, so the serial
     depth is block + n_blocks instead of T.
+
+    With ``axis_name`` (x and a are this rank's block of a time-sharded
+    sequence) the same decomposition crosses ranks: each rank composes
+    its blocks' maps into one affine summary s_out = c + C s_in, the
+    summaries are all-gathered (M + M^2 numbers a row and rank, the
+    gradient passing back through the gather) and every rank folds its
+    left neighbours' maps to its exact entering state: no warmup
+    approximation.  ``block`` must divide the local T.
     """
-    _no_sharding(axis_name)
     T = x.shape[-1]
     M = a.shape[-1]
     C = block
     pad = (-T) % C
+    if pad and axis_name is not None:
+        raise ValueError(
+            "sharded blocked LPC needs block | local T: zero-padded "
+            "tail blocks would corrupt the cross-rank state summary.")
     if pad:
         x = F.pad(x, (0, pad))
         a = F.pad(a, (0, 0, 0, pad))
@@ -151,6 +162,20 @@ def blocked_sample_wise_lpc(x: torch.Tensor, a: torch.Tensor,
 
     s0 = (torch.zeros(*batch, M, dtype=x.dtype, device=x.device)
           if zi is None else zi.to(x.dtype))
+    if axis_name is not None:
+        # cross-rank handoff: fold the left ranks' affine summaries
+        from ..parallel.mesh import all_gather, as_axis
+        axis = as_axis(axis_name)
+        cs = all_gather(c, axis)                     # (S, ..., M)
+        Cs = all_gather(Cm, axis)                    # (S, ..., M, M)
+        # every rank folds every summary and keeps its left ranks' ones,
+        # so that each rank's result depends on the gather and every rank
+        # takes part in its backward
+        left = torch.arange(axis.size, device=x.device) < axis.index
+        for k in range(axis.size):
+            s0 = torch.where(
+                left[k], cs[k] + torch.matmul(Cs[k], s0[..., None])[..., 0],
+                s0)
     s_in = c_in + torch.matmul(C_in, s0[..., None, :, None])[..., 0]
     y = y0 + torch.matmul(H, s_in[..., None])[..., 0]
     y = y.reshape(*batch, n * C)

@@ -8,8 +8,8 @@ learners' initial codebooks and factors, ``signals.nrand`` and ``rand``),
 and :func:`slot_normal`, WORLD's synthesis noise under keys folded from
 each slot's counter (``ops/world_synth.py``).  A CUDA float32 draw launches
 the kernel; a CPU tensor, float64, or a draw inside ``twins()`` takes the
-twin.  Both give JAX's bits exactly, and float32 normals within an ulp or
-two of each other (the kernel's Horner steps fuse their multiply-adds).
+twin.  Both give JAX's bits and float32 normals bit for bit: each copies
+XLA CPU's float32 log1p and fuses the multiply-adds XLA fuses.
 """
 
 from __future__ import annotations

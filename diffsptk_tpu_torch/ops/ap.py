@@ -9,9 +9,9 @@ coarse aperiodicity from windowed waveforms, and log-linear
 interpolation to fft_length/2+1 bins as a static one-hot matmul.  No
 gradient flows through F0.
 
-The sharded TANDEM path of the JAX package (its ``n_offset``,
-``band_bases``, ``band_fix`` and ``carry_fix`` arguments) is not ported
-yet and raises ``NotImplementedError``.
+TANDEM's ``n_offset``, ``band_bases``, ``band_fix`` and ``carry_fix``
+arguments are the sharded path's (parallel/world.py); they ride in the
+same all-bands computation.
 """
 
 from __future__ import annotations
@@ -143,6 +143,10 @@ class AperiodicityExtractionByTANDEM(nn.Module):
             window[i, :s] = np.hanning(s + 2)[1:-1]
         self.register_buffer("window", torch.as_tensor(window))
         self.register_buffer("window_sqrt", torch.as_tensor(np.sqrt(window)))
+        # each band's segment length J_i, on the device: a call copies
+        # nothing from the host
+        self.register_buffer("segment_lengths", torch.as_tensor(
+            self.segment_length, dtype=torch.float64), persistent=False)
         place(self, device, dtype)
 
     def _interp_bap(self, bap: list[torch.Tensor]) -> torch.Tensor:
@@ -158,7 +162,8 @@ class AperiodicityExtractionByTANDEM(nn.Module):
         return ap
 
     def _merged_bands(self, x: torch.Tensor, f0: torch.Tensor,
-                      time_axis: torch.Tensor) -> torch.Tensor:
+                      time_axis: torch.Tensor, band_bases, band_fix,
+                      carry_fix) -> torch.Tensor:
         """All bands at once: one windowed gather over the bands' padded
         signals laid end to end, one batched 6x6 solve, one set of
         reductions (band as a batch axis; each band's segment length J_i
@@ -172,10 +177,18 @@ class AperiodicityExtractionByTANDEM(nn.Module):
         lx = x
         for i in range(nb):
             if i < nb - 1:
-                xs.append(_conv_stride2(lx, self.hHP))
+                hx = _conv_stride2(lx, self.hHP)
                 lx = _conv_stride2(lx, self.hLP)
+                if carry_fix is not None:
+                    # re-mirror the halo beyond the global edges at every
+                    # decimation level, as the unsharded cascade pads
+                    hx = carry_fix(hx, i + 1)
+                    lx = carry_fix(lx, i + 1)
+                xs.append(hx)
             else:
                 xs.append(lx)
+            if band_fix is not None:
+                xs[i] = band_fix(xs[i], i)
 
         segs, starts_all = [], []
         offset = 0
@@ -184,7 +197,8 @@ class AperiodicityExtractionByTANDEM(nn.Module):
             pitch = tmp_fs / f0
             t0 = (pitch + 0.5).to(torch.int32)
             index_bias = (pitch * 0.5 + 0.5).to(torch.int32)
-            curr_pos = (time_axis * tmp_fs + 1.5).to(torch.int32)[None, :]
+            curr_pos = ((time_axis * tmp_fs + 1.5).to(torch.int32)
+                        - band_bases[i])[None, :]
             origin = curr_pos - index_bias                      # (B, N)
             J = self.segment_length[i]
             pad = _tandem_pad(tmp_fs, J)
@@ -220,8 +234,7 @@ class AperiodicityExtractionByTANDEM(nn.Module):
         wsq = self.window_sqrt[None, :, None, :]
         wx = wsq * X
         wxHa = wsq * (X - Ha)
-        counts = torch.as_tensor(self.segment_length, dtype=f0.dtype,
-                                 device=f0.device)[None, :, None]
+        counts = self.segment_lengths.to(f0.dtype)[None, :, None]
         jmask = (torch.arange(Jmax, device=f0.device)[None, None, None, :]
                  < counts[..., None]).to(f0.dtype)            # (1,nb,1,J)
 
@@ -234,19 +247,27 @@ class AperiodicityExtractionByTANDEM(nn.Module):
         bap_b = _std(wxHa) / (_std(wx) + 1e-16)               # (B, nb, N)
         return self._interp_bap([bap_b[:, i] for i in range(nb)])
 
-    def forward(self, x: torch.Tensor, f0: torch.Tensor, n_offset=0,
+    def forward(self, x: torch.Tensor, f0: torch.Tensor, n_offset: int = 0,
                 band_bases=None, band_fix=None,
                 carry_fix=None) -> torch.Tensor:
-        if (n_offset != 0 or band_bases is not None or band_fix is not None
-                or carry_fix is not None):
-            raise NotImplementedError(
-                "the sharded TANDEM path is not ported yet")
+        """``n_offset``: the global index of local frame 0; ``band_bases``:
+        each band's origin of ``x``'s local block in global band samples
+        (both 0 unsharded); ``band_fix``: an optional ``(xb, i) -> xb``
+        hook on each band signal and ``carry_fix`` an optional
+        ``(signal, level) -> signal`` hook on each decimated signal
+        (parallel/world.py: the halo samples beyond the global edges take
+        the values the unsharded padding gives them).  Every window
+        position derives from the global frame, so the arithmetic is the
+        same under any sharding."""
+        if band_bases is None:
+            band_bases = [0] * self.n_band
         f0 = torch.where(f0 <= 32, torch.full_like(f0, self.default_f0),
                          f0).detach()
         N = f0.shape[-1]
-        time_axis = torch.arange(N, dtype=f0.dtype, device=f0.device) * (
-            self.frame_period / self.sample_rate)
-        return self._merged_bands(x, f0, time_axis)
+        time_axis = ((torch.arange(N, device=f0.device) + n_offset)
+                     .to(f0.dtype) * (self.frame_period / self.sample_rate))
+        return self._merged_bands(x, f0, time_axis, band_bases, band_fix,
+                                  carry_fix)
 
 
 class AperiodicityExtractionByD4C(nn.Module):

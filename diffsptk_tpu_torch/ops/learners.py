@@ -14,7 +14,8 @@ to the full-batch result up to the order of summation.
 Random draws come from JAX's generator, drawn on the learner's device
 (``kernels/threefry.py``, whose twin is ``utils/prng.py``), so a seed
 gives the JAX package's initial means, codebooks and factors (its uniform
-factors bit for bit, its normals to a few ulps: ROADMAP C.13).
+factors and float32 normals bit for bit, its float64 normals to rtol 1e-10:
+ROADMAP C.13).
 """
 
 from __future__ import annotations
@@ -52,6 +53,26 @@ def as_chunks(x, batch_size, device=None, dtype=None):
     return chunks
 
 
+# rows a GEMM sums at once in the GMM's statistics: a float32 GEMM on the
+# card accumulates each entry along its reduction in one run, whose
+# rounding grows with the run's length (ROADMAP C.19)
+STAT_ROWS = 1024
+
+
+def row_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a.T @ b`` as per-block GEMMs over ``STAT_ROWS`` rows at a time
+    and a sum of the blocks' results: equal up to the order of sums, with
+    the rounding of blocks of rows instead of all of them."""
+    B = a.shape[0]
+    full = B - B % STAT_ROWS
+    if full <= STAT_ROWS:
+        return a.T @ b
+    n = full // STAT_ROWS
+    out = torch.sum(a[:full].reshape(n, STAT_ROWS, -1).transpose(1, 2)
+                    @ b[:full].reshape(n, STAT_ROWS, -1), dim=0)
+    return out + a[full:].T @ b[full:] if full < B else out
+
+
 def cluster_sums(indices: torch.Tensor, x: torch.Tensor, K: int):
     """Per-cluster counts (int64, exact) and sums of the rows of ``x``
     assigned by ``indices``: the counts by an integer ``index_add_``, the
@@ -63,6 +84,23 @@ def cluster_sums(indices: torch.Tensor, x: torch.Tensor, K: int):
     onehot = (indices[:, None] == torch.arange(K, device=x.device)).to(
         x.dtype)
     return counts, onehot.T @ x
+
+
+class LocalRows:
+    """The data-parallel reductions of the EM and Lloyd loops, of one
+    process that holds all the rows: the number of rows, the sums of
+    statistics over the processes that hold rows, and the one host read of
+    a step.  ``parallel/learners.py``'s ``MeshRows`` spreads the rows over
+    a mesh axis."""
+
+    def rows(self, chunks) -> int:
+        return sum(c.shape[0] for c in chunks)
+
+    def sum(self, *stats) -> tuple:
+        return stats
+
+    def read(self, *scalars) -> list:
+        return torch.stack(scalars).tolist()
 
 
 class GaussianMixtureModeling(BaseLearnerOp):
@@ -80,7 +118,7 @@ class GaussianMixtureModeling(BaseLearnerOp):
                  var_floor: float = 1e-6, var_type: str = "diag",
                  block_size=None, ubm=None, alpha: float = 0,
                  batch_size=None, verbose=False, seed: int = 0,
-                 dtype=None, device=None) -> None:
+                 dtype=None, device=None, reducer=None) -> None:
         super().__init__()
         if order < 0:
             raise ValueError("order must be non-negative.")
@@ -108,6 +146,7 @@ class GaussianMixtureModeling(BaseLearnerOp):
         self.var_floor = var_floor
         self.alpha = alpha
         self.batch_size = batch_size
+        self.reducer = LocalRows() if reducer is None else reducer
 
         L = order + 1
         if block_size is None:
@@ -171,7 +210,8 @@ class GaussianMixtureModeling(BaseLearnerOp):
         lbg_params.setdefault("batch_size", self.batch_size)
         lbg = LindeBuzoGrayAlgorithm(self.order, self.n_mixture,
                                      dtype=self.w.dtype,
-                                     device=self.w.device, **lbg_params)
+                                     device=self.w.device,
+                                     reducer=self.reducer, **lbg_params)
         codebook, indices, _ = lbg(chunks, return_indices=True)
         K = codebook.shape[0]
         counts = var = 0
@@ -182,8 +222,9 @@ class GaussianMixtureModeling(BaseLearnerOp):
             n, v = cluster_sums(idx, (c - codebook[idx]) ** 2, K)
             counts, var = counts + n, var + v
             t1 = t2
+        counts, var = self.reducer.sum(counts, var)
         counts = counts.to(codebook.dtype)
-        self.w = counts / t1
+        self.w = counts / torch.sum(counts)     # every process's rows
         self.mu = codebook
         self.sigma = torch.diag_embed(
             var / torch.clamp(counts, min=1)[:, None]) * self.mask
@@ -225,17 +266,18 @@ class GaussianMixtureModeling(BaseLearnerOp):
 
     def _accum_stats(self, params, x):
         """Per-chunk sufficient statistics (sum g, sum g x, sum g x x^T,
-        ll).  The full second moment is one GEMM over (B, K L) rows."""
+        ll).  The full second moment is a GEMM over (B, K L) rows, in
+        blocks of rows (``row_sums``)."""
         posterior, ll = self._e_step(x, params=params)
         z = torch.sum(posterior, dim=0)
-        px = posterior.T @ x
+        px = row_sums(posterior, x)
         if self.is_diag:
-            pxx = posterior.T @ (x * x)
+            pxx = row_sums(posterior, x * x)
         else:
             B, K = posterior.shape
             L = x.shape[-1]
-            pxx = ((posterior[:, :, None] * x[:, None, :]).reshape(
-                B, K * L).T @ x).reshape(K, L, L)
+            pxx = row_sums((posterior[:, :, None] * x[:, None, :]).reshape(
+                B, K * L), x).reshape(K, L, L)
         return z, px, pxx, ll
 
     def _m_step(self, stats, T: float):
@@ -304,7 +346,7 @@ class GaussianMixtureModeling(BaseLearnerOp):
         The fit continues from the current parameters, so a stopped run
         resumes by reloading them (``set_params``) and calling again."""
         chunks = self._chunks(x)
-        T = float(sum(c.shape[0] for c in chunks))
+        T = float(self.reducer.rows(chunks))
         params = (self.w, self.mu, self.sigma)
         prev_ll = -np.inf
         ll = torch.tensor(-np.inf)
@@ -313,8 +355,8 @@ class GaussianMixtureModeling(BaseLearnerOp):
             for c in chunks[1:]:
                 stats = tuple(a + b for a, b in zip(
                     stats, self._accum_stats(params, c)))
-            new_params, ll = self._m_step(stats, T)
-            ll_host = float(ll)              # the stated host read
+            new_params, ll = self._m_step(self.reducer.sum(*stats), T)
+            ll_host, = self.reducer.read(ll)        # the stated host read
             change = ll_host - prev_ll
             # ll is evaluated at the pre-update parameters, as the JAX
             # package keeps the reference's bookkeeping
@@ -371,7 +413,7 @@ class LindeBuzoGrayAlgorithm(BaseLearnerOp):
                  eps: float = 1e-10, perturb_factor: float = 1e-5,
                  init="mean", metric: str = "none", batch_size=None,
                  seed: int = 0, verbose=False, dtype=None,
-                 device=None) -> None:
+                 device=None, reducer=None) -> None:
         super().__init__()
         if codebook_size <= 0:
             raise ValueError("codebook_size must be positive.")
@@ -393,6 +435,7 @@ class LindeBuzoGrayAlgorithm(BaseLearnerOp):
         self.perturb_factor = perturb_factor
         self.metric = metric
         self.batch_size = batch_size
+        self.reducer = LocalRows() if reducer is None else reducer
         self.vq = VectorQuantization(order, codebook_size, seed=seed,
                                      dtype=dtype, device=device)
         # the key lives on the codebook's device: a draw copies nothing
@@ -428,11 +471,12 @@ class LindeBuzoGrayAlgorithm(BaseLearnerOp):
         chunks = as_chunks(x, self.batch_size, cb.device, cb.dtype)
         if chunks[0].ndim != 2:
             raise ValueError("Input vectors must be 2D.")
-        T = sum(c.shape[0] for c in chunks)
+        T = self.reducer.rows(chunks)
         L = chunks[0].shape[1]
 
         if self.init == "mean":
-            cb[0] = sum(torch.sum(c, dim=0) for c in chunks) / T
+            cb[0] = self.reducer.sum(
+                sum(torch.sum(c, dim=0) for c in chunks))[0] / T
         elif self.init != "none":
             raise ValueError(f"init {self.init} is not supported.")
         cb[self.curr_codebook_size:] = 1e10
@@ -451,6 +495,8 @@ class LindeBuzoGrayAlgorithm(BaseLearnerOp):
                 if K is not None:
                     n, s = cluster_sums(indices, c, K)
                     n_data, csum = n_data + n, csum + s
+            if K is not None:
+                sq, n_data, csum = self.reducer.sum(sq, n_data, csum)
             return idx_chunks, sq, n_data, csum
 
         distance = np.inf
@@ -469,8 +515,8 @@ class LindeBuzoGrayAlgorithm(BaseLearnerOp):
                 K = self.curr_codebook_size
                 _, sq, n_data, centroids = e_step(K)
                 mask = self.min_data_per_cluster <= n_data
-                sq_host, n_bad = torch.stack(        # the stated host read
-                    [sq, torch.sum(~mask).to(sq.dtype)]).tolist()
+                sq_host, n_bad = self.reducer.read(         # the stated host read
+                    sq, torch.sum(~mask).to(sq.dtype))
                 distance = sq_host / T
                 if callback is not None and callback(
                         iteration=n, codebook_size=K, distance=distance,

@@ -80,9 +80,11 @@ class PitchExtractionByYIN:
         self.tau_max = int(np.ceil(sample_rate / f_min)) + 1
         self.window_length = window_length or 2 * self.tau_max
 
-    def calc_prob(self, x: torch.Tensor) -> torch.Tensor:
-        frames = _yin_frames(x, self.frame_period, self.window_length,
-                             self.tau_max)
+    def calc_prob(self, x: torch.Tensor,
+                  frames: torch.Tensor | None = None) -> torch.Tensor:
+        if frames is None:
+            frames = _yin_frames(x, self.frame_period, self.window_length,
+                                 self.tau_max)
         d = yin_difference(frames, self.window_length, self.tau_max)
         return yin_cmnd(d)
 
@@ -90,9 +92,11 @@ class PitchExtractionByYIN:
         raise NotImplementedError(
             "out_format 'embed' requires algorithm='crepe'.")
 
-    def calc_pitch(self, x: torch.Tensor) -> torch.Tensor:
-        """f0 in Hz with 0 at unvoiced frames."""
-        cm = self.calc_prob(x)                           # (..., N, tau_max)
+    def calc_pitch(self, x: torch.Tensor,
+                   frames: torch.Tensor | None = None) -> torch.Tensor:
+        """f0 in Hz with 0 at unvoiced frames.  ``frames`` bypasses the
+        framing (sharded callers frame locally after a halo exchange)."""
+        cm = self.calc_prob(x, frames)                   # (..., N, tau_max)
         tau_axis = torch.arange(self.tau_max, device=cm.device)
         in_range = (self.tau_min <= tau_axis) & (tau_axis
                                                  < self.tau_max - 1)

@@ -72,7 +72,10 @@ class SpectrumExtractionByCheapTrick(nn.Module):
                                                   dtype=torch.float64))
         place(self, device, dtype)
 
-    def forward(self, x: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, f0: torch.Tensor,
+                frames: torch.Tensor | None = None) -> torch.Tensor:
+        """``frames`` bypasses the framing of ``x`` (sharded callers frame
+        locally after a halo exchange)."""
         f0 = torch.where(f0 <= self.f_min,
                          torch.full_like(f0, self.default_f0),
                          f0).detach()[..., None]
@@ -80,7 +83,8 @@ class SpectrumExtractionByCheapTrick(nn.Module):
 
         waveform = get_windowed_waveform(
             x, f0, 3, 0, self.frame_period, self.sample_rate,
-            self.fft_length, "hanning", True, 1e-12, self.ramp)
+            self.fft_length, "hanning", True, 1e-12, self.ramp,
+            frames=frames)
 
         power_spectrum = self.spec(waveform)
         dc_bins = int(self.f0_ceil / (self.sample_rate / self.fft_length)) + 2

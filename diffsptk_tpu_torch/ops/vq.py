@@ -4,7 +4,7 @@ Nearest-neighbour codebook lookup with a straight-through estimator and a
 commitment loss, and its residual (multi-stage) form.  Codebooks are
 ``nn.Parameter``s drawn from JAX's generator on the op's device
 (``kernels/threefry.py``), so a seed gives the JAX package's codebook
-(ROADMAP C.13: its normals to a few ulps).
+(bit for bit at float32, ROADMAP C.13).
 """
 
 from __future__ import annotations

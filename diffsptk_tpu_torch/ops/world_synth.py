@@ -119,10 +119,14 @@ class WorldSynthesis(nn.Module):
                                     batch_offset, length, dtype)
 
     def _slot_responses(self, env, apr, vuv, time_shift, noise_size,
-                        valid, time_index, span: int) -> torch.Tensor:
+                        valid, time_index_global, span: int,
+                        batch_offset: int = 0) -> torch.Tensor:
         """Per-slot periodic + aperiodic responses (B, Pmax, L), already
-        masked by slot validity; ``span`` is the noise counters' row
-        stride."""
+        masked by slot validity: the core of the synthesis that does not
+        depend on the sharding.  The noise is keyed by each pulse's global
+        sample position ``time_index_global`` and global batch row (local
+        row + ``batch_offset``); ``span`` is the global signal length, the
+        counters' row stride (parallel/world.py)."""
         L = self.fft_length
         D = env.shape[-1]
         dt = env.dtype
@@ -131,8 +135,9 @@ class WorldSynthesis(nn.Module):
         # GetNoiseSpectrum(): noise_length samples, zero-padded to L by
         # the real-DFT plans.
         Ln = self.noise_length
-        noise = self._slot_noise(time_index, span=span, batch_offset=0,
-                                 length=Ln, dtype=dt)
+        noise = self._slot_noise(time_index_global, span=span,
+                                 batch_offset=batch_offset, length=Ln,
+                                 dtype=dt)
         Cn, Sn, Hm, Pfold = _plans(L, Ln, dt, dev)
         mask = self.ramp[:Ln] < noise_size
         noise = noise * mask

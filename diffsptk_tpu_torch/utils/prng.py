@@ -25,9 +25,11 @@ nothing here needs an unsigned type.  The functions mirror jax 0.9.0:
 * ``normal``   -- ``random.py:_normal_real``: sqrt(2) erfinv(u), u uniform
   on [nextafter(-1, 0), 1).  At float32 erfinv is the single-precision
   polynomial of M. Giles ("Approximating the erfinv function", GPU
-  Computing Gems, 2011) that XLA lowers ``erf_inv`` to, so the port's
-  float32 normals agree with JAX's to an ulp or two; at float64 it is
-  ``torch.special.erfinv``.
+  Computing Gems, 2011) that XLA lowers ``erf_inv`` to, with the
+  logarithm XLA's CPU backend inlines for ``log1p`` (:func:`log1p_xla`)
+  and the multiply-adds it fuses, so the port's float32 normals equal
+  JAX's bit for bit; at float64 it is ``torch.special.erfinv``, within
+  rtol 1e-10 (XLA calls the C library's ``log`` there).
 
 The hand-written CUDA kernel (``kernels/threefry.py``) draws float32
 normals on the card; this module is its plain twin.
@@ -35,6 +37,7 @@ normals on the card; this module is its plain twin.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -52,6 +55,26 @@ ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
                 -0.00367342844, 0.00573950773, -0.0076224613,
                 0.00943887047, 1.00167406, 2.83297682)
+
+# XLA CPU's float32 log1p (``xla.log1p.f32``, jax 0.9.0), read off its
+# optimised LLVM IR and machine code.  Below |x| < sqrt(2) - 1 it is the
+# rational x - x^2/2 + x^3 P(x)/Q(x); above, Cephes' logf of 1 + x: the
+# mantissa m in [sqrt(1/2), sqrt(2)) - 1, three interleaved quadratics
+# joined in x^3, and the exponent times ln 2 in two parts.  The backend
+# fuses each multiply that feeds one add; ``fma32`` does the same.
+LOG1P_SMALL = 0.4142135679721832             # float32(sqrt(2) - 1)
+LOG1P_DEN = (15.062909126281738, 83.04756927490234, 221.7624053955078,
+             309.0987243652344, 216.42788696289062, 60.11865997314453)
+LOG1P_NUM = (4.527000055531971e-05, 0.4985410273075104, 6.578732490539551,
+             29.91191864013672, 60.949668884277344, 57.11296463012695,
+             20.039552688598633)
+LOGF_SQRTH = 0.7071067690849304              # float32(sqrt(1/2))
+LOGF_QUADRATICS = (
+    (0.07037683576345444, -0.11514610052108765, 0.11676998436450958),
+    (-0.12420140951871872, 0.14249323308467865, -0.16668057441711426),
+    (0.2000071406364441, -0.24999994039535522, 0.3333333134651184))
+LN2_LO = -0.00021219444170128554
+LN2_HI = 0.693359375
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -176,11 +199,83 @@ def uniform(key: torch.Tensor, shape, dtype=torch.float32,
     return to_range(_unit(key, shape, dtype), dtype, minval, maxval)
 
 
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add rounds it.
+
+    The product of two float32 values is exact in float64; the sum is
+    taken there with its rounding error (Knuth's two-sum), and an inexact
+    sum is rounded to odd, which makes its rounding to float32 the
+    correct one (Boldo and Melquiond, "Emulation of FMA and correctly
+    rounded sums", IEEE TC 57(4), 2008)."""
+    f64 = torch.float64
+    p = a.to(f64) * torch.as_tensor(b, dtype=f64, device=a.device)
+    c = torch.as_tensor(c, dtype=f64, device=a.device)
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    word = s.view(torch.int64)
+    step = torch.where((s > 0) == (err > 0), 1, -1)
+    word = word + torch.where((err != 0) & ((word & 1) == 0), step, 0)
+    return word.view(f64).to(torch.float32)
+
+
+def sqrt32(w: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded as XLA's ``sqrt`` is.
+
+    torch's CPU square root may be an ulp off (it can reach a vector math
+    library), so the float64 root rounded to float32 is checked against
+    the two midpoints beside it, whose squares are exact in float64."""
+    root = torch.sqrt(w.to(torch.float64)).to(torch.float32)
+    up = torch.nextafter(root, torch.full_like(root, math.inf))
+    down = torch.nextafter(root, torch.zeros_like(root))
+    r64, w64 = root.to(torch.float64), w.to(torch.float64)
+    hi = (r64 + up.to(torch.float64)) * 0.5
+    lo = (r64 + down.to(torch.float64)) * 0.5
+    return torch.where(hi * hi < w64, up,
+                       torch.where(lo * lo > w64, down, root))
+
+
+def log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 log1p(x) for -1 < x < inf, bit for bit as XLA's CPU
+    backend computes it (the constants above)."""
+    full = functools.partial(torch.full_like, x)
+    # the rational branch
+    x2 = x * x
+    t0 = x * 0.0
+    den = t0 + 1.0
+    for c in LOG1P_DEN:
+        den = fma32(den, x, c)
+    num = t0 + LOG1P_NUM[0]
+    for c in LOG1P_NUM[1:]:
+        num = fma32(num, x, c)
+    # a float64 quotient of float32 operands rounds to float32 correctly
+    q = (num.double() / den.double()).to(torch.float32)
+    small = x + fma32(x2, -0.5, (x * x2) * q)
+    # logf(1 + x)
+    u = torch.clamp(x + 1.0, min=2.0 ** -126)
+    word = u.view(torch.int32)
+    e = ((word >> 23) - 127).to(torch.float32) + 1.0
+    m = ((word & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    below = m < LOGF_SQRTH
+    r = (m - 1.0) + torch.where(below, m, full(0.0))
+    e = e - torch.where(below, full(1.0), full(0.0))
+    z = r * r
+    r3 = z * r
+    a, b, c = (fma32(fma32(r, c0, c1), r, c2)
+               for c0, c1, c2 in LOGF_QUADRATICS)
+    t = fma32(fma32(a, r3, b), r3, c)
+    t = fma32(t, r3, e * LN2_LO)
+    large = fma32(e, LN2_HI, fma32(z, -0.5, r) + t)
+    return torch.where(x.abs() < LOG1P_SMALL, small, large)
+
+
 def erfinv_giles(x: torch.Tensor) -> torch.Tensor:
-    """float32 erfinv as XLA computes it (Giles' polynomial), for |x| < 1."""
-    w = -torch.log1p(-x * x)
+    """float32 erfinv as XLA computes it (Giles' polynomial, its Horner
+    steps fused), for |x| < 1: bit for bit ``jax.lax.erf_inv`` on the
+    CPU."""
+    w = -log1p_xla(-x * x)
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(small, w - 2.5, sqrt32(w) - 3.0)
 
     def coeff(i):
         return torch.where(small, torch.full_like(x, ERFINV_SMALL[i]),
@@ -188,7 +283,7 @@ def erfinv_giles(x: torch.Tensor) -> torch.Tensor:
 
     p = coeff(0)
     for i in range(1, len(ERFINV_SMALL)):
-        p = coeff(i) + p * w
+        p = fma32(p, w, coeff(i))
     return p * x
 
 

@@ -11,7 +11,7 @@ Every JAX reference is the functional call, jitted where it can be traced
 The random functions draw from keys the two packages share: Griffin-Lim's
 initial phase is ``jax.random.uniform``'s, equal bit for bit, and
 ``excite``'s Gaussian noise ``jax.random.normal``'s, which the port
-reproduces to three ulps (ROADMAP C.13), far inside the bar."""
+reproduces bit for bit at float32 (ROADMAP C.13)."""
 
 from __future__ import annotations
 

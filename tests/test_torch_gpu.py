@@ -16,8 +16,8 @@ gather equal to
 its twin (a copy); the overlap-add and the gather's backward within 1e-5
 of their twins (sums in another order than index_add's), and the
 overlap-add equal to overlap_add_grouped (its own order, in torch); the
-threefry kernel's bits equal to its twin's and its normals within rtol 1e-6
-(fused multiply-adds in erfinv's polynomial); the SPD solve kernel within
+threefry kernel's bits and normals equal to its twin's bit for bit (both
+copy XLA CPU's float32 log1p and its fused multiply-adds); the SPD solve kernel within
 1e-4 of max|x| of its twin, its backward rtol 1e-3 / atol 1e-4; the scan kernel
 within 2e-5 (float32) and 1e-4 (complex64) of its twin, its backward
 within 1e-4 (the tolerances of tests/test_pallas_scan.py), and equal bit
@@ -49,6 +49,8 @@ from chip_smoke import (
     MISC_BARS,
     OPS_REST_BARS,
     OPS_REST_HOST_STEPS,
+    SHARDED_BARS,
+    SHARDED_LAUNCHES,
     f0_tracks,
     feature_ops,
     class_path,
@@ -753,7 +755,7 @@ def test_threefry_flat_matches_twin(cuda, shape):
                            prng.bits(key.to(cuda), shape))
         torch.testing.assert_close(
             threefry.normal_cuda(key, shape, cuda),
-            prng.normal(key.to(cuda), shape, torch.float32), rtol=1e-6,
+            prng.normal(key.to(cuda), shape, torch.float32), rtol=0,
             atol=0)
 
 
@@ -775,7 +777,7 @@ def test_threefry_slot_matches_twin(cuda, B, P, length, span, offset):
     torch.testing.assert_close(
         threefry.slot_normal_cuda(5, ti, span, offset, length),
         prng.slot_normal(5, ti, span, offset, length, torch.float32),
-        rtol=1e-6, atol=0)
+        rtol=0, atol=0)
 
 
 def test_threefry_dispatch(cuda):
@@ -1245,8 +1247,8 @@ def test_roots_to_polynomial_and_griffin_make_no_host_read(cuda):
 def test_random_draws_on_the_card(cuda, dtype):
     """nrand, rand, the initial codebook and NMF's two factors draw on the
     card with no host read.  A float32 draw launches the threefry kernel:
-    its uniform values equal the host's bit for bit, its normals within
-    rtol 1e-6, as [K8] holds them.  A float64 draw takes the twin there:
+    its uniform values and normals equal the host's bit for bit, as [K8]
+    holds them (ROADMAP C.13).  A float64 draw takes the twin there:
     uniform values bit for bit, normals within rtol 1e-12 (the card's
     float64 erfinv need not round as the host's)."""
     key = prng.PRNGKey(11)
@@ -1272,6 +1274,78 @@ def test_random_draws_on_the_card(cuda, dtype):
         assert got.is_cuda and got.dtype == dtype
         if normal:
             torch.testing.assert_close(got.cpu(), want, atol=0,
-                                       rtol=1e-6 if launch else 1e-12)
+                                       rtol=0 if launch else 1e-12)
         else:
             assert torch.equal(got.cpu(), want)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A (1, 1) CUDA mesh over an NCCL process group of world size 1 (an
+    in-process store), destroyed after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from diffsptk_tpu_torch.parallel import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_mesh((1, 1))
+    finally:
+        dist.destroy_process_group()
+
+
+def _no_read_launches(fn):
+    """``fn()``'s result and each kernel's launches in it, called once
+    to warm (plans and caches) and once under the sync debug mode "error"
+    (a host read raises)."""
+    fn()
+    torch.cuda.synchronize()
+    mods = {"newton": newton, "gather": gather, "ola": ola,
+            "threefry": threefry}
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, {k: m.launches for k, m in mods.items() if m.launches}
+
+
+def test_sharded_vocoder_on_one_nccl_rank(nccl_mesh):
+    """ShardedMelCepstralVocoder through NCCL at world size 1 equals the
+    one-rank MelCepstralVocoder (its folded cascade, the sharded one's
+    form) within [sharded]'s bar, launches the Newton kernel (B1) ten
+    times an analysis and reads nothing back to the host."""
+    from diffsptk_tpu_torch.parallel import ShardedMelCepstralVocoder
+    x = torch.as_tensor(synth_speech(4, 19200), device="cuda")
+    kw = dict(device="cuda", dtype=torch.float32)
+    voc = ShardedMelCepstralVocoder(nccl_mesh, **kw)
+    with torch.no_grad():
+        y, launches = _no_read_launches(lambda: voc.analysis_synthesis(x))
+        want = pt.MelCepstralVocoder(cascade="folded",
+                                     **kw).analysis_synthesis(x)
+    assert launches == SHARDED_LAUNCHES["vocoder"] == {"newton": 10}
+    assert rel_to_max(torch, y, want) <= SHARDED_BARS["vocoder"]
+
+
+def test_sharded_world_on_one_nccl_rank(nccl_mesh):
+    """ShardedWorldVocoder (TANDEM) through NCCL at world size 1 equals the
+    one-rank WorldVocoder's synthesis of its even frames within
+    [sharded]'s bar, launches the overlap-add kernel (B7) once, the gather
+    kernel (B6) and the threefry kernel as SHARDED_LAUNCHES states, and
+    reads nothing back to the host."""
+    from diffsptk_tpu_torch.parallel import ShardedWorldVocoder
+    x = torch.as_tensor(synth_speech(4, 19200), device="cuda")
+    kw = dict(device="cuda", dtype=torch.float32)
+    wv = ShardedWorldVocoder(nccl_mesh, 80, 16000, 1024, **kw)
+    one = pt.WorldVocoder(80, 16000, 1024, ap_algorithm="tandem", **kw)
+    with torch.no_grad():
+        y, launches = _no_read_launches(lambda: wv.analysis_synthesis(x))
+        want = one.synthesize(*one.analyze(x, even_frames=True))
+    assert launches == SHARDED_LAUNCHES["world"]
+    assert launches["ola"] == 1
+    assert rel_to_max(torch, y, want) <= SHARDED_BARS["world"]

@@ -1,9 +1,8 @@
 """The port's learners and vector quantizers against the JAX package on
 the CPU: the initial codebooks, means and factors drawn from a seed
-(JAX's generator: the uniform factors of NMF equal bit for bit, the
-normal draws within three ulps at float32 and rtol 1e-10 at float64,
-the most that 1.6 million draws of eight seeds showed, as ROADMAP C.13
-pins: JAX's float normals take XLA's own log1p), VQ and
+(JAX's generator: the uniform factors of NMF and the float32 normal
+draws equal bit for bit, the float64 normal draws within rtol 1e-10, as
+ROADMAP C.13 records: the port copies XLA's own float32 log1p), VQ and
 multi-stage VQ on one codebook, GMM after a fixed number of EM
 iterations with ``eps=0`` (diagonal, full and block covariance, MAP
 adaptation from a UBM, streaming by ``batch_size``, the LBG warm start,
@@ -33,7 +32,12 @@ import torch
 import diffsptk_tpu as dsp
 import diffsptk_tpu_torch as pt
 from diffsptk_tpu.utils import checkpoint as jckpt
-from diffsptk_tpu_torch.ops.learners import as_chunks, cluster_sums
+from diffsptk_tpu_torch.ops.learners import (
+    STAT_ROWS,
+    as_chunks,
+    cluster_sums,
+    row_sums,
+)
 from diffsptk_tpu_torch.utils import checkpoint as tckpt
 from diffsptk_tpu_torch.utils.metrics import JsonlMetricsLogger
 
@@ -66,12 +70,12 @@ def _close(got, want, dtype, rtol=None, atol=None):
 
 
 def _same_draw(got, want, dtype):
-    """The port's normal draw against JAX's: three ulps at float32, rtol
-    1e-10 at float64 (ROADMAP C.13)."""
+    """The port's normal draw against JAX's: equal at float32, rtol 1e-10
+    at float64 (ROADMAP C.13)."""
     got, want = _np(got), np.asarray(want)
     assert got.dtype == want.dtype
     if dtype == torch.float32:
-        np.testing.assert_array_max_ulp(got, want, maxulp=3)
+        np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
 
@@ -286,6 +290,18 @@ def test_cluster_sums_match_index_add():
     torch.testing.assert_close(n, torch.bincount(idx, minlength=6))
     torch.testing.assert_close(s, torch.zeros(6, 3, dtype=x.dtype)
                                .index_add_(0, idx, x))
+
+
+@pytest.mark.parametrize("rows", [50, 2 * STAT_ROWS, 3 * STAT_ROWS + 37])
+def test_row_sums_equal_the_gemm(rows):
+    """The GMM's statistics' GEMM in blocks of STAT_ROWS rows (whole
+    blocks, and a remainder) equals one GEMM over all the rows up to the
+    order of sums."""
+    a = torch.as_tensor(RNG.standard_normal((rows, 6)))
+    b = torch.as_tensor(RNG.standard_normal((rows, 4)))
+    got = row_sums(a, b)
+    assert got.shape == (6, 4)
+    torch.testing.assert_close(got, a.T @ b, rtol=1e-12, atol=1e-12)
 
 
 def _sign_fixed(V):

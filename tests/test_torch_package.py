@@ -178,3 +178,67 @@ def test_build_runs_every_nvcc_at_once_and_times_each(tmp_path, monkeypatch):
     took = dict(build.seconds)
     assert build.build(("newton",)) == {"newton": logs["newton"]}
     assert build.seconds == took               # nothing was compiled again
+
+
+PARALLEL_NAMES = ("exchange_halo", "make_mesh", "ShardedSTFT", "sharded_frame",
+                  "ShardedAllPoleDigitalFilter", "ShardedMelCepstralVocoder",
+                  "ShardedWorldVocoder", "DataParallelGMM", "shard",
+                  "unshard")
+
+
+def test_parallel_imports_with_jax_blocked():
+    """``diffsptk_tpu_torch.parallel`` imports without JAX, exports the
+    JAX package's eight ``parallel`` names and ``shard`` / ``unshard``, and
+    is not imported by the package itself (as the JAX package's is
+    not)."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['diffsptk_tpu'] = None\n"
+            "import diffsptk_tpu_torch\n"
+            "assert 'diffsptk_tpu_torch.parallel' not in sys.modules\n"
+            "import diffsptk_tpu_torch.parallel as par\n"
+            f"names = {PARALLEL_NAMES!r}\n"
+            "missing = [n for n in names if not hasattr(par, n)]\n"
+            "assert not missing, missing\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_parallel_sources_name_no_jax():
+    """No identifier, attribute or import under parallel/ names ``jax`` or
+    ``diffsptk_tpu`` (its docstrings cite the JAX package's files)."""
+    bad = []
+    pdir = os.path.join(PKG, "parallel")
+    for f in sorted(os.listdir(pdir)):
+        if not f.endswith(".py"):
+            continue
+        path = os.path.join(pdir, f)
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Name):
+                names = [node.id]
+            elif isinstance(node, ast.Attribute):
+                names = [node.attr]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f}:{node.lineno}: {n}" for n in names
+                    if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_make_mesh_asks_for_the_card():
+    """Without ``device_type`` the mesh is a CUDA one: with no card it
+    raises as every operator does; with one it needs a process group."""
+    from diffsptk_tpu_torch.parallel import make_mesh
+    if torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="process group"):
+            make_mesh((1, 1))
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh((1, 1))

@@ -1,10 +1,11 @@
 """The port's copy of JAX's threefry generator (utils/prng.py) and its
 dispatch (kernels/threefry.py) against jax.random on the CPU.
 
-Bits must be equal bit for bit; uniform and normal floats within rtol 1e-6
-(float32 erfinv is the same polynomial on both sides, evaluated with other
-roundings of log1p; float64 erfinv is torch's against XLA's); WORLD's slot
-draw against the JAX synthesis's own ``_slot_noise``."""
+Bits must be equal bit for bit; uniform and normal floats within rtol 1e-6,
+and float32 normals bit for bit for eight seeds (the twin copies XLA CPU's
+float32 log1p and its fused multiply-adds: ROADMAP C.13; float64 erfinv is
+torch's against XLA's); WORLD's slot draw against the JAX synthesis's own
+``_slot_noise``."""
 
 from __future__ import annotations
 
@@ -88,6 +89,61 @@ def test_uniform_and_normal_match_jax(seed, dtype):
             np.testing.assert_allclose(
                 got.numpy(), np.asarray(jax.random.normal(jk, shape, jdt)),
                 rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_float32_normals_equal_jax(seed):
+    """C.13: 50,003 draws a seed (about 170 in the large-w branch), bit
+    for bit."""
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    got = prng.normal(tk, (50_003,), torch.float32).numpy()
+    want = np.asarray(jax.random.normal(jk, (50_003,), jnp.float32))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_log1p_equals_xla():
+    """The twin's log1p on both of its branches, near their edges and at
+    erfinv's arguments, against jnp.log1p bit for bit."""
+    rng = np.random.default_rng(3)
+    edge = np.float32(prng.LOG1P_SMALL)
+    x = np.concatenate([
+        rng.uniform(-0.999999, 4.0, 100_000),
+        -rng.uniform(0, 1, 100_000) ** 2,
+        np.nextafter(edge, np.float32(rng.uniform(-1, 1, 64) * 9)),
+        -np.nextafter(edge, np.float32(rng.uniform(-1, 1, 64) * 9)),
+        [0.0, -0.0, 1e-30, -1e-30, -0.99999994, 1e6]]).astype(np.float32)
+    got = prng.log1p_xla(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(jnp.log1p)(jnp.asarray(x)))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_fma32_and_sqrt32_round_once():
+    """fma32 against numpy's float64 product-and-sum where that is exact,
+    and against hand cases where one rounding differs from two; sqrt32
+    against numpy's float32 square root (correctly rounded)."""
+    rng = np.random.default_rng(4)
+    a, b = (rng.uniform(-2, 2, 100_000).astype(np.float32) for _ in "ab")
+    c = (rng.uniform(-2, 2, 100_000).astype(np.float32)
+         * np.float32(2.0 ** -8))
+    t = [torch.from_numpy(v) for v in (a, b, c)]
+    got = prng.fma32(*t).numpy()
+    p = a.astype(np.float64) * b.astype(np.float64)
+    exact = np.abs(p) >= 2.0 ** 20 * np.abs(c.astype(np.float64))
+    want = (p + c.astype(np.float64)).astype(np.float32)
+    # where the sum is not exact in float64 one rounding may differ from
+    # numpy's two only at float32 midpoints; elsewhere they agree
+    agree = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert agree.max() <= np.spacing(np.abs(want)).max()
+    assert np.mean(got[exact] == want[exact]) > 0.999
+    one = np.float32(1.0)
+    eps = np.float32(2.0 ** -23)
+    # (1 + 2^-23)(1 - 2^-23) - 1 = -2^-46: fused, not the 0 of two roundings
+    got1 = prng.fma32(torch.tensor([one + eps]), torch.tensor([one - eps]),
+                      torch.tensor([-one])).item()
+    assert got1 == -(2.0 ** -46)
+    w = (rng.uniform(0, 100, 200_000) ** 2).astype(np.float32)
+    np.testing.assert_array_equal(prng.sqrt32(torch.from_numpy(w)).numpy(),
+                                  np.sqrt(w))
 
 
 def test_normal_tails_match_jax():

@@ -114,12 +114,24 @@ def test_blocked_matches_plain_loop():
 
 
 def test_sharded_path_is_not_ported():
-    x = torch.zeros(1, 64, dtype=torch.float64)
-    a = torch.zeros(1, 64, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        rec.sample_wise_lpc(x, a, axis_name="time")
-    with pytest.raises(NotImplementedError):
-        rec.blocked_sample_wise_lpc(x, a, block=16, axis_name="time")
+    """The time-sharded path (once not ported) at one rank, on a trivial
+    time axis with no process group: equal to the one-rank blocked form
+    (the cross-rank fold has nothing to its left), at M = 1 too, where
+    the one-rank op takes the scan; a block that does not divide the
+    local length raises.  Across ranks: tests/test_torch_parallel.py."""
+    from diffsptk_tpu_torch.parallel.mesh import Axis
+    one = Axis(None, None)
+    rng = _rng(3)
+    for M in (1, 4):
+        x = torch.as_tensor(rng.standard_normal((2, 512)))
+        a = torch.as_tensor(0.2 * rng.standard_normal((2, 512, M)))
+        got = rec.sample_wise_lpc(x, a, block=64, axis_name=one)
+        want = rec.blocked_sample_wise_lpc(x, a, block=64)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    with pytest.raises(ValueError, match="block"):
+        rec.blocked_sample_wise_lpc(x[:, :100], a[:, :100], block=64,
+                                    axis_name=one)
 
 
 @pytest.mark.parametrize("M,C,W", [(1, 160, 40), (4, 256, 64),

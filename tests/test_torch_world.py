@@ -235,13 +235,21 @@ def test_aperiodicity_1d_and_formats(ref):
 
 
 def test_tandem_sharded_path_raises(ref):
+    """TANDEM's sharded hooks (parallel/world.py) once raised here; now
+    they ride in the all-bands path: with identity hooks it equals the
+    call without them, and with a frame offset and shifted band origins
+    it equals the JAX package's per-band loop."""
+    from diffsptk_tpu.ops.ap import AperiodicityExtractionByTANDEM as JT
     ext = pt.Aperiodicity(FP, SR, FFT, **F64).extractor
     x, f = torch.as_tensor(X), torch.as_tensor(ref["f0"])
-    for kw in (dict(n_offset=3), dict(band_bases=[0, 0, 0, 0]),
+    merged = ext(x, f)
+    for kw in (dict(band_bases=[0, 0, 0, 0]),
                dict(band_fix=lambda xb, i: xb),
                dict(carry_fix=lambda xb, i: xb)):
-        with pytest.raises(NotImplementedError):
-            ext(x, f, **kw)
+        _close(ext(x, f, **kw), merged)
+    kw = dict(n_offset=3, band_bases=[1, 0, -1, 2])
+    want = JT(FP, SR, FFT)(jnp.asarray(X), jnp.asarray(ref["f0"]), **kw)
+    _close(ext(x, f, **kw), want)
 
 
 def _t_with_slots(monkeypatch, fn, *args):
