@@ -195,6 +195,17 @@ Phases (each prints one line; any failure exits non-zero):
                (1, n) mesh, each class's unshard against one card at the
                same bars (the GMM also fitted in float64 on both sides);
                with one card, a line that says it did not run;
+ 39. train-pitch -- the training paths (tools/torch_train_fcnf0.py,
+               tools/torch_train_crepe_tiny.py) at their default batches:
+               FCNF0 40 steps from init on the device corpus (the
+               threefry kernel, 17 launches a step) and 10 resumed from
+               the bundled checkpoint, CREPE-tiny 40 steps on host batches
+               made before the timed window: ms a step, frames/s, busy
+               share, peak memory, no host read, finite and falling
+               losses; the corpus's draws equal to the twin's, its values
+               within CORPUS32_BARS of float64; one step's gradients
+               against the CPU twin's float64; the checkpoint through
+               PitchExtractionByFCNF0 on the card, a finite f0;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -4483,6 +4494,302 @@ def run_sharded_multi(torch, xw, xb, joint, card: str, device="cuda",
     return errs
 
 
+TRAIN_STEPS = 40      # [train-pitch]: steps from the initial parameters
+TRAIN_RESUMED = 10    # FCNF0 steps resumed from the bundled checkpoint
+TRAIN_WARM = 5        # steps before the timed ones
+TRAIN_BATCH = {"fcnf0": 64, "crepe": 128}    # the trainers' defaults
+# One step's gradients on the card against the CPU twin's in float64 (the
+# same batch), of max|g|: in full fp32 1e-4; in TF32 (FCNF0's precision)
+# ten times the reading of 6.23e-2 (tools/torch_train_precision.py, NVIDIA
+# H100).  The CPU's own float32 lay 7.3e-4 from its float64 there, so a
+# float32 CPU reference cannot hold the card at 1e-4.
+TRAIN_GRAD_BAR = 1e-4
+TRAIN_TF32_GRAD_BAR = 0.63
+TF32_PEAK = 495e12    # H100 SXM dense TF32, flop/s
+
+
+def train_tool(name: str):
+    """A trainer of ``tools/`` (``tools/<name>.py``), loaded by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def timed_steps(torch, step, steps: int, warm: int = TRAIN_WARM):
+    """``step(i)`` for i < ``steps``, each returning its loss on the card:
+    the first ``warm`` untimed, the rest each between two CUDA events and
+    under ``HostReads``.  Returns the losses (on the host, read once at
+    the end), the timed steps' ms and the ``HostReads``."""
+    losses = [step(i) for i in range(warm)]
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(warm, steps)]
+    torch.cuda.synchronize()
+    with HostReads(torch, losses[0].device) as hr:
+        for i, (start, stop) in enumerate(events, start=warm):
+            start.record()
+            losses.append(step(i))
+            stop.record()
+    torch.cuda.synchronize()
+    ms = [start.elapsed_time(stop) for start, stop in events]
+    return torch.stack(losses).cpu().numpy(), ms, hr
+
+
+def train_line(torch, name: str, losses, ms, hr, batch: int, flops: float,
+               peak: float, prof) -> str:
+    """One run's numbers: ms a step (median and p90 of the timed steps),
+    frames/s at the median, the bound, busy share, peak memory, host
+    reads, the losses, and the costliest device functions."""
+    busy, top, n_dev, wall = prof
+    med = float(np.median(ms))
+    bound = flops * batch / (TF32_PEAK if name == "fcnf0" else F32_PEAK) \
+        * 1e3
+    return (f"median {med:.3f} ms a step (p90 "
+            f"{float(np.percentile(ms, 90)):.3f}, {len(ms)} timed steps "
+            f"after {TRAIN_WARM}), {batch / med * 1e3:.0f} frames/s; bound "
+            f"{bound:.4f} ms ({3 * flops * batch / 3e9:.1f} GFLOP at "
+            f"{'TF32' if name == 'fcnf0' else 'fp32'} peak, "
+            f"{100 * bound / med:.2f} % reached); "
+            f"{busy_share(busy, wall)}, {n_dev:.0f} device functions a "
+            f"step; peak memory {peak:.1f} MiB; host reads {hr.count}; "
+            f"loss first {losses[0]:.4f} last {losses[-1]:.4f} (means of "
+            f"the first and last 10: {float(np.mean(losses[:10])):.4f}, "
+            f"{float(np.mean(losses[-10:])):.4f}); top device time: "
+            + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:4]))
+
+
+def fcnf0_step_split(torch, TF, trainer, B: int) -> str:
+    """Where an FCNF0 step's time goes (``tools/torch_train_fcnf0.py``'s
+    ``trainer`` on its device, batch ``B``): the corpus, the forward and
+    backward, Adam and the whole step, each its CUDA-event ms a call over
+    20 calls after warm-up, and the device functions and device-busy ms
+    of one call.  Adam and the step move the trainer's parameters."""
+    from diffsptk_tpu_torch.utils import prng
+
+    dev = trainer.device
+    key = prng.PRNGKey(9)
+    x, t = TF.synth_batch_device(key, B, dev)
+    _, g = trainer.loss_and_grads(x, t)
+    state = {"key": prng.PRNGKey(99)}
+
+    def step():
+        state["key"], sub = prng.split(state["key"])
+        return trainer.step(*TF.synth_batch_device(sub, B, dev))
+
+    parts = []
+    for stage, fn in (("corpus", lambda: TF.synth_batch_device(key, B, dev)),
+                      ("forward and backward",
+                       lambda: trainer.loss_and_grads(x, t)),
+                      ("Adam", lambda: trainer.adam.update(g)),
+                      ("step", step)):
+        ms = cuda_ms(torch, fn, 20, warm=3)
+        busy, _, n_dev, _, _ = profile_chain(torch, fn, calls=1)
+        parts.append(f"{stage} {ms:.3f} ms ({n_dev:.0f} device functions, "
+                     f"busy {busy:.3f} ms)")
+    return "; ".join(parts)
+
+
+def run_train_pitch(torch, xw, card: str) -> None:
+    """[train-pitch]: the repo's training paths on the card through the
+    port's trainers (tools/torch_train_fcnf0.py, torch_train_crepe_tiny.py),
+    at their default batches.  FCNF0 from ``init_fcnf0_params(0)`` for
+    ``TRAIN_STEPS`` steps on the device corpus (the threefry kernel:
+    ``CORPUS_LAUNCHES`` a step), then ``TRAIN_RESUMED`` steps from the
+    JAX package's bundled checkpoint; CREPE-tiny for ``TRAIN_STEPS``
+    steps on numpy batches made before the timed window.  Each: CUDA-event
+    ms a step, frames/s, busy share, peak memory, no host read in the
+    timed steps, finite losses (falling from init).  The corpus's draws
+    equal the twin's bit for bit and its values lie within
+    ``CORPUS32_BARS`` of float64 on the same draws; one step's gradients
+    in full fp32 within ``TRAIN_GRAD_BAR`` of the CPU twin's float64 ones,
+    in TF32 within ``TRAIN_TF32_GRAD_BAR``.  The resumed run's npz, loaded by
+    ``PitchExtractionByFCNF0(weights=path)`` on the card, gives a finite
+    f0 on ``synth_speech``."""
+    import os
+    import tempfile
+
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.kernels import threefry
+    from diffsptk_tpu_torch.ops.pitch_nn import (
+        PitchExtractionByFCNF0,
+        bundled_weights_path,
+        init_crepe_params,
+        init_fcnf0_params,
+    )
+    from diffsptk_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    TF = train_tool("torch_train_fcnf0")
+    TC = train_tool("torch_train_crepe_tiny")
+    dev = xw.device
+    B = TRAIN_BATCH["fcnf0"]
+
+    # the device corpus: the kernel's draws against the twin's on the card
+    # and on the host; its values against float64 on the same draws
+    key = prng.PRNGKey(7)
+    draws = TF.corpus_draws(key, B, dev)
+    with twins():
+        twin = TF.corpus_draws(key, B, dev)
+    host = TF.corpus_draws(key, B, "cpu")
+    differ = [k for k in draws if not (torch.equal(draws[k], twin[k])
+                                       and torch.equal(draws[k].cpu(),
+                                                       host[k]))]
+    check(not differ, f"[train-pitch] corpus draws differ from the twin's: "
+          f"{differ}")
+    x32, t32 = TF.synth_from_draws(draws)
+    x64, t64 = TF.synth_from_draws(
+        {k: (v.double() if v.is_floating_point() else v).cpu()
+         for k, v in draws.items()})
+    err_x, err_t = rel_err(torch, x32, x64), rel_err(torch, t32, t64)
+    bars = TF.CORPUS32_BARS
+    check(err_x <= bars["x"] and err_t <= bars["target"],
+          f"[train-pitch] float32 corpus off float64: x {err_x}, target "
+          f"{err_t}")
+
+    # one step's gradients on the card against the CPU twin's, in float64
+    # (the reference) and float32
+    init = init_fcnf0_params(0)
+    x, target = TF.synth_batch_device(prng.PRNGKey(8), B, dev)
+    refs = {dt: TF.Trainer(init, "cpu", dtype=dt).loss_and_grads(
+        x.cpu().to(dt), target.cpu().to(dt))[1]
+        for dt in (torch.float64, torch.float32)}
+    scale = max(float(g.abs().max()) for g in refs[torch.float64])
+
+    def grad_err(grads, ref) -> float:
+        return max(float((a.cpu().double() - b.double()).abs().max())
+                   for a, b in zip(grads, ref)) / scale
+
+    grads = {precision: TF.Trainer(init, dev, precision=precision)
+             .loss_and_grads(x, target)[1] for precision in ("full", "tf32")}
+    err = {p: grad_err(g, refs[torch.float64]) for p, g in grads.items()}
+    err32 = {p: grad_err(g, refs[torch.float32]) for p, g in grads.items()}
+    err_cpu32 = grad_err(refs[torch.float32], refs[torch.float64])
+    check(err["full"] <= TRAIN_GRAD_BAR,
+          f"[train-pitch] fp32 gradients off the CPU twin's: {err['full']}")
+    check(err["tf32"] <= TRAIN_TF32_GRAD_BAR,
+          f"[train-pitch] TF32 gradients off the CPU twin's: {err['tf32']}")
+    print(f"[train-pitch] fcnf0 corpus B={B}: {len(draws)} draws equal to "
+          f"the twin's on the card and the host; x {err_x:.3e} of max "
+          f"from float64 on the same draws (bar {bars['x']}), target "
+          f"{err_t:.3e} (bar {bars['target']}); one step's gradients of "
+          f"max|g| from the CPU twin's in float64: full fp32 "
+          f"{err['full']:.3e} (bar {TRAIN_GRAD_BAR}), TF32 "
+          f"{err['tf32']:.3e} (bar {TRAIN_TF32_GRAD_BAR}); from its "
+          f"float32 (for information): full fp32 {err32['full']:.3e}, TF32 "
+          f"{err32['tf32']:.3e}, and the CPU's float32 from its float64 "
+          f"{err_cpu32:.3e} | {card}", flush=True)
+
+    def fcnf0_run(params: dict, steps: int):
+        trainer = TF.Trainer(params, dev)
+        state = {"key": prng.PRNGKey(99)}
+
+        def step(_i):
+            state["key"], sub = prng.split(state["key"])
+            return trainer.step(*TF.synth_batch_device(sub, B, dev))
+
+        torch.cuda.synchronize()
+        threefry.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, hr = timed_steps(torch, step, steps)
+        launches = threefry.launches / steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        busy, top, n_dev, _, wall = profile_chain(torch, lambda: step(0))
+        check(bool(np.isfinite(losses).all()),
+              f"[train-pitch] fcnf0 loss not finite: {losses}")
+        check(hr.count == 0,
+              f"[train-pitch] fcnf0 steps read the card {hr.count} times "
+              f"at {hr.where}")
+        check(launches == TF.CORPUS_LAUNCHES,
+              f"[train-pitch] {launches} threefry launches a step, "
+              f"expected {TF.CORPUS_LAUNCHES}")
+        return trainer, losses, ms, hr, launches, peak, (busy, top, n_dev,
+                                                         wall)
+
+    flops = {"fcnf0": 3 * conv_flops("fcnf0"),
+             "crepe": 3 * conv_flops("crepe", "tiny")}
+    trainer, losses, ms, hr, launches, peak, prof = fcnf0_run(init,
+                                                             TRAIN_STEPS)
+    check(float(np.mean(losses[-10:])) < float(np.mean(losses[:10])),
+          f"[train-pitch] fcnf0 loss did not fall: {losses}")
+    print(f"[train-pitch] fcnf0 from init, B={B}, {TRAIN_STEPS} steps: "
+          f"threefry {launches:.1f} launches a step; "
+          + train_line(torch, "fcnf0", losses, ms, hr, B, flops["fcnf0"],
+                       peak, prof) + f" | {card}", flush=True)
+
+    print(f"[train-pitch] fcnf0 step split, B={B}, CUDA events over 20 "
+          f"calls each: " + fcnf0_step_split(torch, TF, trainer, B)
+          + f" | {card}", flush=True)
+
+    bundled = dict(np.load(bundled_weights_path("fcnf0_synth.npz")))
+    trainer, losses, ms, hr, launches, peak, prof = fcnf0_run(
+        bundled, TRAIN_RESUMED)
+    print(f"[train-pitch] fcnf0 resumed from the bundled checkpoint, B={B}, "
+          f"{TRAIN_RESUMED} steps: threefry {launches:.1f} launches a step; "
+          + train_line(torch, "fcnf0", losses, ms, hr, B, flops["fcnf0"],
+                       peak, prof) + f" | {card}", flush=True)
+
+    # the checkpoint round trip: the resumed run's npz on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fcnf0.npz")
+        trainer.save(path)
+        ext = PitchExtractionByFCNF0(80, 16000, weights=path, device=dev)
+    same = all(torch.equal(ext.params[k], p.detach())
+               for k, p in trainer.params.items())
+    check(same, "[train-pitch] the checkpoint's weights changed on loading")
+    rows = xw[:4]
+    with torch.no_grad():
+        f0 = ext.calc_pitch(rows)
+    check(bool(torch.isfinite(f0).all()),
+          "[train-pitch] f0 from the trained checkpoint is not finite")
+    T = rows.shape[-1]
+    truth = torch.as_tensor(synth_f0(rows.shape[0], T)[:, np.minimum(
+        np.arange(f0.shape[-1]) * 80, T - 1)], device=dev, dtype=f0.dtype)
+    voiced = f0 > 0
+    cents = cents_diff(f0[voiced], truth[voiced]).abs()
+    med_cents = float(cents.median()) if cents.numel() else float("nan")
+
+    # CREPE-tiny, on numpy batches made before the timed window
+    Bc = TRAIN_BATCH["crepe"]
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.as_tensor(a, device=dev)
+                     for a in TC.synth_batch(rng, Bc))
+               for _ in range(TRAIN_STEPS)]
+    crepe = TC.Trainer(init_crepe_params("tiny", seed=0), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, hr = timed_steps(torch, lambda i: crepe.step(*batches[i]),
+                                 TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    busy, top, n_dev, _, wall = profile_chain(
+        torch, lambda: crepe.step(*batches[-1]))
+    running = [p for k, p in crepe.params.items() if "running_" in k]
+    check(bool(np.isfinite(losses).all())
+          and all(bool(torch.isfinite(p).all()) for p in running),
+          f"[train-pitch] crepe loss or running statistics not finite: "
+          f"{losses}")
+    check(hr.count == 0, f"[train-pitch] crepe steps read the card "
+          f"{hr.count} times at {hr.where}")
+    check(float(np.mean(losses[-10:])) < float(np.mean(losses[:10])),
+          f"[train-pitch] crepe loss did not fall: {losses}")
+    print(f"[train-pitch] crepe-tiny from init, B={Bc}, {TRAIN_STEPS} steps "
+          f"(batches made on the host before the timed window): "
+          + train_line(torch, "crepe", losses, ms, hr, Bc, flops["crepe"],
+                       peak, (busy, top, n_dev, wall)) + f" | {card}",
+          flush=True)
+    print(f"[train-pitch] checkpoint: the resumed run's npz loaded by "
+          f"PitchExtractionByFCNF0 on the card, weights equal; f0 of "
+          f"{rows.shape[0]} x {rows.shape[-1]} finite, voiced on "
+          f"{100 * float(voiced.float().mean()):.1f} % of frames, median "
+          f"{med_cents:.1f} cents from the known glide; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4888,6 +5195,9 @@ def main() -> int:
     run_sharded_multi(torch, xw, xb, joint, card)
     del xb, joint
 
+    # 39. the training paths: the pitch networks' trainers
+    run_train_pitch(torch, xw, card)
+
     kernels = []
     meta = {
         "newton": ("cuda", "diffsptk_tpu_torch/csrc/newton.cu",
@@ -4912,7 +5222,9 @@ def main() -> int:
         "threefry": ("cuda", "diffsptk_tpu_torch/csrc/threefry.cu",
                      "diffsptk_tpu/ops/world_common.py:293-298 and "
                      "diffsptk_tpu/ops/world_synth.py:128-143 "
-                     "(jax.random.normal; not a Pallas kernel)"),
+                     "(jax.random.normal; not a Pallas kernel); "
+                     "tools/train_fcnf0.py:113-189 (jax.random.uniform, "
+                     "normal and randint's bits)"),
     }
     for key, (route, source, replaces) in meta.items():
         r = report[key]

@@ -1,5 +1,6 @@
 // JAX's default random numbers on the card: Threefry-2x32 (20 rounds) in
-// JAX's partitionable layout, as uniform bits or float32 normals.
+// JAX's partitionable layout, as uniform bits, float32 uniform values on
+// [lo, lo + span) or float32 normals.
 //
 // Replaces: jax.random.normal as the JAX package calls it for WORLD's
 // noise, diffsptk_tpu/ops/world_common.py:293-298 (the windowed
@@ -14,7 +15,9 @@
 // normal is sqrt(2) erfinv(u) with u = max(lo, 2 f + lo), f the top 23 bits
 // over 2^23 and lo = nextafter(-1, 0) (JAX's uniform on [lo, 1): its scale
 // 1 - lo rounds to 2, so 2 f is exact and no contraction changes u), and
-// erfinv Giles' single-precision polynomial, as XLA lowers erf_inv.
+// erfinv Giles' single-precision polynomial, as XLA lowers erf_inv.  A
+// float32 uniform value is max(lo, f span + lo), its multiply-add fused as
+// XLA fuses random.py:_uniform's (lo and span are float32 on the host).
 //
 // Bound on this card: operations.  A draw writes 4 bytes an element and
 // does about a hundred operations on it (77 for the hash, about 30 for u
@@ -139,27 +142,33 @@ __device__ __forceinline__ float normal_of(uint32_t b) {
   return 0x1.6a09e6p+0f * erfinv_giles(u);          // float32(sqrt(2))
 }
 
-// Flat draw: out[i] for i < n, as raw bits (int32 bit pattern) or normals.
-template <bool kBits>
+enum Draw { kBits, kNormal, kUniform };
+
+// Flat draw: out[i] for i < n, as raw bits (int32 bit pattern), normals or
+// uniform values on [lo, lo + span).
+template <Draw kDraw>
 __global__ void __launch_bounds__(kThreads)
 threefry_flat_kernel(uint32_t k0, uint32_t k1, void* __restrict__ out,
-                     long long n) {
+                     long long n, float lo, float span) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        i < n; i += stride) {
     const uint32_t b = bits32(k0, k1, i);
-    if (kBits) {
+    if (kDraw == kBits) {
       static_cast<uint32_t*>(out)[i] = b;
-    } else {
+    } else if (kDraw == kNormal) {
       static_cast<float*>(out)[i] = normal_of(b);
+    } else {
+      const float f = static_cast<float>(b >> 9) * 0x1p-23f;
+      static_cast<float*>(out)[i] = fmaxf(lo, __fmaf_rn(f, span, lo));
     }
   }
 }
 
 // Slot draw: block s = b P + p draws out[s, 0:length) under
 // fold_in(key, ctr), ctr = (b + offset) span + time_index[b, p] mod 2^32.
-template <bool kBits>
+template <Draw kDraw>
 __global__ void __launch_bounds__(kThreads)
 threefry_slot_kernel(uint32_t k0, uint32_t k1,
                      const long long* __restrict__ time_index,
@@ -173,7 +182,7 @@ threefry_slot_kernel(uint32_t k0, uint32_t k1,
   const size_t base = static_cast<size_t>(s) * length;
   for (int i = threadIdx.x; i < length; i += kThreads) {
     const uint32_t v = bits32(c0, c1, i);
-    if (kBits) {
+    if (kDraw == kBits) {
       static_cast<uint32_t*>(out)[base + i] = v;
     } else {
       static_cast<float*>(out)[base + i] = normal_of(v);
@@ -183,18 +192,36 @@ threefry_slot_kernel(uint32_t k0, uint32_t k1,
 
 }  // namespace
 
+namespace {
+
+unsigned flat_grid(long long n) {
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks < (1LL << 20) ? blocks : (1LL << 20));
+}
+
+}  // namespace
+
 extern "C" int threefry_flat(unsigned int k0, unsigned int k1, void* out,
                              long long n, int want_bits, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  const unsigned grid =
-      static_cast<unsigned>(blocks < (1LL << 20) ? blocks : (1LL << 20));
   auto st = static_cast<cudaStream_t>(stream);
   if (want_bits) {
-    threefry_flat_kernel<true><<<grid, kThreads, 0, st>>>(k0, k1, out, n);
+    threefry_flat_kernel<kBits><<<flat_grid(n), kThreads, 0, st>>>(
+        k0, k1, out, n, 0.0f, 0.0f);
   } else {
-    threefry_flat_kernel<false><<<grid, kThreads, 0, st>>>(k0, k1, out, n);
+    threefry_flat_kernel<kNormal><<<flat_grid(n), kThreads, 0, st>>>(
+        k0, k1, out, n, 0.0f, 0.0f);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int threefry_uniform(unsigned int k0, unsigned int k1, float* out,
+                                long long n, float lo, float span,
+                                void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  threefry_flat_kernel<kUniform><<<flat_grid(n), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      k0, k1, out, n, lo, span);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,10 +237,10 @@ extern "C" int threefry_slot(unsigned int k0, unsigned int k1,
   auto st = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>(slots);
   if (want_bits) {
-    threefry_slot_kernel<true><<<grid, kThreads, 0, st>>>(
+    threefry_slot_kernel<kBits><<<grid, kThreads, 0, st>>>(
         k0, k1, ti, out, P, length, span, offset);
   } else {
-    threefry_slot_kernel<false><<<grid, kThreads, 0, st>>>(
+    threefry_slot_kernel<kNormal><<<grid, kThreads, 0, st>>>(
         k0, k1, ti, out, P, length, span, offset);
   }
   return static_cast<int>(cudaGetLastError());

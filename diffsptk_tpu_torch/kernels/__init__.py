@@ -1,0 +1,5 @@
+from .recurrence import (
+    first_order_recurrence,
+    lfilter,
+    sample_wise_lpc,
+)

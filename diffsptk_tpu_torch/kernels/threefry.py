@@ -1,15 +1,19 @@
-"""JAX's random normals on the card: hand-written CUDA kernel
+"""JAX's random numbers on the card: hand-written CUDA kernel
 (``csrc/threefry.cu``) and the dispatch between it and its plain twin,
 ``utils/prng.py``.
 
-Three draws: :func:`normal` and :func:`uniform`, flat draws under one
-key (WORLD's dither in ``ops/world_common.py``, excitation noise, the
-learners' initial codebooks and factors, ``signals.nrand`` and ``rand``),
-and :func:`slot_normal`, WORLD's synthesis noise under keys folded from
-each slot's counter (``ops/world_synth.py``).  A CUDA float32 draw launches
-the kernel; a CPU tensor, float64, or a draw inside ``twins()`` takes the
-twin.  Both give JAX's bits and float32 normals bit for bit: each copies
-XLA CPU's float32 log1p and fuses the multiply-adds XLA fuses.
+Four draws: :func:`normal`, :func:`uniform` and :func:`randint`, flat
+draws under one key (WORLD's dither in ``ops/world_common.py``, excitation
+noise, the learners' initial codebooks and factors, ``signals.nrand`` and
+``rand``, the pitch trainer's device corpus), and :func:`slot_normal`,
+WORLD's synthesis noise under keys folded from each slot's counter
+(``ops/world_synth.py``).  A CUDA float32 (or int32) draw launches the
+kernel; a CPU tensor, float64, or a draw inside ``twins()`` takes the
+twin.  Both give JAX's bits, float32 uniform values and float32 normals
+bit for bit: each copies XLA CPU's float32 log1p and fuses the
+multiply-adds XLA fuses.  A float32 uniform draw is one launch of the
+kernel's uniform entry; randint's two draws of 32-bit words are two
+launches of its bits entry, combined by the twin's arithmetic.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..utils import prng
@@ -40,7 +45,12 @@ def _lib():
                      ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                      ctypes.c_int, ctypes.c_void_p]
     slot.restype = ctypes.c_int
-    return flat, slot
+    uni = lib.threefry_uniform
+    uni.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+                    ctypes.c_void_p]
+    uni.restype = ctypes.c_int
+    return flat, slot, uni
 
 
 def _key_words(key: torch.Tensor) -> tuple[int, int]:
@@ -78,6 +88,25 @@ def normal_cuda(key: torch.Tensor, shape, device, bits: bool = False
     k0, k1 = _key_words(key)
     _launch(_lib()[0], k0, k1, out.data_ptr(), out.numel(), int(bits),
             device=device)
+    return out
+
+
+def uniform_cuda(key: torch.Tensor, shape, device, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """``prng.uniform(key, shape, float32, minval, maxval)`` on the card, in
+    one launch: the bounds and their span rounded to float32 on the host,
+    the scale and shift one fused multiply-add, as the twin's."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("uniform_cuda draws on a CUDA device")
+    out = torch.empty(tuple(int(s) for s in shape), device=device,
+                      dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    lo, hi = np.float32(minval), np.float32(maxval)
+    k0, k1 = _key_words(key)
+    _launch(_lib()[2], k0, k1, out.data_ptr(), out.numel(), float(lo),
+            float(hi - lo), device=device)
     return out
 
 
@@ -127,13 +156,27 @@ def normal(key: torch.Tensor, shape, dtype, device) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape, dtype, device, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype, minval, maxval)`` on
-    ``device``: for a CUDA float32 draw the kernel's bits, scaled as the
-    twin scales them (the same values bit for bit), the twin elsewhere."""
+    ``device``: the kernel for a CUDA float32 draw (the twin's values bit
+    for bit), the twin elsewhere."""
     if _use_kernel(device, dtype):
-        b = normal_cuda(key, shape, device, bits=True).to(torch.int64)
-        return prng.to_range(prng.unit32(b & prng.MASK), dtype, minval,
-                             maxval)
+        return uniform_cuda(key, shape, device, minval, maxval)
     return prng.uniform(_on(key, device), shape, dtype, minval, maxval)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int, dtype,
+            device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype)`` on
+    ``device``: for a CUDA int32 draw the kernel's bits under each half of
+    the key (two launches), combined as the twin combines them (the same
+    values); the twin elsewhere (an int64 draw takes 64-bit words, which
+    the kernel does not make)."""
+    if (torch.device(device).type == "cuda" and dtype == torch.int32
+            and not use_twins()):
+        k1, k2 = prng.split(key, 2)
+        words = [normal_cuda(k, shape, device, bits=True).to(torch.int64)
+                 & prng.MASK for k in (k1, k2)]
+        return prng.randint_from_bits(*words, minval, maxval, dtype)
+    return prng.randint(_on(key, device), shape, minval, maxval, dtype)
 
 
 def slot_normal(seed: int, time_index: torch.Tensor, span: int,

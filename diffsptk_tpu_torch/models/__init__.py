@@ -1,0 +1,2 @@
+from .mcep_vocoder import MelCepstralVocoder
+from .world_vocoder import WorldVocoder

@@ -1,5 +1,6 @@
 from . import checkpoint
 from .linalg import (
+    cas,
     cexp,
     clog,
     hankel,

@@ -6,6 +6,8 @@ Toeplitz / Hankel matrices and the same SPD solve dispatch.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -22,6 +24,11 @@ def hankel(x: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (..., n, n) with X[i, j] = x[i + j], n = (d+1)//2."""
     i = torch.arange((x.shape[-1] + 1) // 2, device=x.device)
     return x[..., i[:, None] + i[None, :]]
+
+
+def cas(x: torch.Tensor) -> torch.Tensor:
+    """cos(x) + sin(x), the Hartley kernel."""
+    return math.sqrt(2.0) * torch.cos(x - 0.25 * math.pi)
 
 
 def cexp(x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,8 @@ nothing here needs an unsigned type.  The functions mirror jax 0.9.0:
   bits are bits1 ^ bits2, 64-bit bits bits1 << 32 | bits2;
 * ``uniform``  -- ``random.py:_uniform``: the top mantissa bits under an
   exponent of 0, minus 1, scaled to [minval, maxval);
+* ``randint``  -- ``random.py:_randint``: two draws of words under the
+  halves of the key, combined modulo the span;
 * ``normal``   -- ``random.py:_normal_real``: sqrt(2) erfinv(u), u uniform
   on [nextafter(-1, 0), 1).  At float32 erfinv is the single-precision
   polynomial of M. Giles ("Approximating the erfinv function", GPU
@@ -187,16 +189,105 @@ def to_range(unit: torch.Tensor, dtype, minval: float = 0.0,
     """Uniform values on [0, 1) scaled to [minval, maxval) as
     ``jax.random.uniform`` scales them.  The bounds and their span are
     rounded to ``dtype`` on the host, as JAX computes them in it; no
-    scalar is copied to the device."""
+    scalar is copied to the device.  At float32 the scale and shift are
+    one fused multiply-add, as XLA's CPU backend fuses them, so the values
+    equal JAX's bit for bit; at float64 they are rounded twice (within an
+    ulp of JAX's)."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     lo, hi = np_dtype(minval), np_dtype(maxval)
-    return torch.clamp(unit * float(hi - lo) + float(lo), min=float(lo))
+    if dtype == torch.float32:
+        scaled = fma32(unit, float(hi - lo), float(lo))
+    else:
+        scaled = unit * float(hi - lo) + float(lo)
+    return torch.clamp(scaled, min=float(lo))
 
 
 def uniform(key: torch.Tensor, shape, dtype=torch.float32,
             minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` on [minval, maxval)."""
     return to_range(_unit(key, shape, dtype), dtype, minval, maxval)
+
+
+_INT_BITS = {torch.int32: 32, torch.int64: 64}
+
+
+def _urem(x: torch.Tensor, span: int, nbits: int) -> torch.Tensor:
+    """x mod span for unsigned ``nbits``-bit words ``x`` (32-bit words as
+    int64 values in [0, 2^32); 64-bit words as int64 bit patterns) and a
+    span in [1, 2^nbits)."""
+    if nbits == 32 or span == 1:
+        return torch.remainder(x, span)
+    top = 1 << 63
+    if span >= top:                     # one subtraction at most
+        big = (x ^ -top) >= ((span - (1 << 64)) ^ -top)   # unsigned >=
+        return torch.where(big, x - span, x)
+    low = torch.remainder(x & (top - 1), span)
+    high = top % span                   # the top bit's share of x mod span
+    wrap = torch.where(low >= span - high, low - (span - high), low + high)
+    return torch.where(x < 0, wrap, low)
+
+
+def _mul_wrap32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """a * m mod 2^32 for a in [0, 2^32) and m < 2^32, in int64 without
+    overflow (16 bits of m at a time)."""
+    lo = a * (m & 0xFFFF)
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK
+
+
+def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor,
+                      minval: int, maxval: int, dtype) -> torch.Tensor:
+    """``jax.random.randint``'s arithmetic (``random.py:_randint``) on its
+    two draws of ``nbits``-bit words, as :func:`bits` returns them.
+
+    The bounds are clipped to ``dtype``'s range and the span is taken
+    modulo 2^nbits, as JAX does; the span is 1 where maxval <= minval and
+    one more where maxval lies above the type's maximum.  The offset is
+    (higher mod span) * m + lower mod span with m = (2^(nbits/2) mod
+    span)^2 mod span, every product and sum wrapping in ``nbits`` bits as
+    JAX's unsigned words do, then mod span (a span of 0 -- the whole range -- keeps
+    ``lower``, as XLA's remainder by zero does)."""
+    nbits = _INT_BITS[dtype]
+    full = (1 << nbits) - 1
+    info = torch.iinfo(dtype)
+    minval, maxval = int(minval), int(maxval)
+    lo = min(max(minval, info.min), info.max)
+    hi = min(max(maxval, info.min), info.max)
+    span = (hi - lo) & full
+    if hi <= lo:
+        span = 1
+    elif maxval > info.max:
+        span = (span + 1) & full
+    if span == 0:
+        offset = lower
+    else:
+        half = (1 << (nbits // 2)) % span
+        mult = ((half * half) & full) % span   # the square wraps too
+        a = _urem(higher, span, nbits)
+        b = _urem(lower, span, nbits)
+        if nbits == 32:
+            offset = _urem((_mul_wrap32(a, mult) + b) & MASK, span, 32)
+        else:
+            # int64 products and sums wrap modulo 2^64 as uint64's do
+            offset = _urem(a * mult + b, span, 64)
+    if nbits == 32:
+        word = (offset + lo) & MASK
+        return torch.where(word >= 1 << 31, word - (1 << 32), word).to(dtype)
+    return offset + lo
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            dtype=torch.int32) -> torch.Tensor:
+    """``jax.random.randint`` on [minval, maxval) (integer bounds): the key
+    split in two, one draw of ``nbits``-bit words under each (32 for int32,
+    64 for int64, JAX's default integer under x64), combined by
+    :func:`randint_from_bits`."""
+    if dtype not in _INT_BITS:
+        raise TypeError(f"randint takes int32 or int64, not {dtype}")
+    nbits = _INT_BITS[dtype]
+    k1, k2 = split(key, 2)
+    return randint_from_bits(bits(k1, shape, nbits), bits(k2, shape, nbits),
+                             minval, maxval, dtype)
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -208,8 +299,11 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     correct one (Boldo and Melquiond, "Emulation of FMA and correctly
     rounded sums", IEEE TC 57(4), 2008)."""
     f64 = torch.float64
-    p = a.to(f64) * torch.as_tensor(b, dtype=f64, device=a.device)
-    c = torch.as_tensor(c, dtype=f64, device=a.device)
+    # a Python scalar stays one: a device tensor made from it would be a
+    # copy from the host
+    b = b.to(f64) if torch.is_tensor(b) else float(b)
+    c = c.to(f64) if torch.is_tensor(c) else float(c)
+    p = a.to(f64) * b
     s = p + c
     v = s - p
     err = (p - (s - v)) + (c - v)

@@ -1349,3 +1349,99 @@ def test_sharded_world_on_one_nccl_rank(nccl_mesh):
     assert launches == SHARDED_LAUNCHES["world"]
     assert launches["ola"] == 1
     assert rel_to_max(torch, y, want) <= SHARDED_BARS["world"]
+
+
+def _train_tool(name: str):
+    """A trainer of ``tools/`` (``tools/<name>.py``), loaded by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fcnf0_train_step_makes_no_host_read(cuda):
+    """One FCNF0 step on the card (the device corpus through the threefry
+    kernel, the network in TF32 forward and backward, Adam) under the sync
+    debug mode "error": no host read, ``CORPUS_LAUNCHES`` launches, a
+    finite loss, parameters moved."""
+    from diffsptk_tpu_torch.ops.pitch_nn import init_fcnf0_params
+
+    TF = _train_tool("torch_train_fcnf0")
+    trainer = TF.Trainer(init_fcnf0_params(0), cuda)
+    before = trainer.params["head.bias"].detach().clone()
+    keys = prng.split(prng.PRNGKey(99), 2)
+
+    def step(key):
+        return trainer.step(*TF.synth_batch_device(key, 8, cuda))
+
+    step(keys[0])                          # builds and plans
+    torch.cuda.synchronize()
+    threefry.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step(keys[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert threefry.launches == TF.CORPUS_LAUNCHES
+    assert bool(torch.isfinite(loss))
+    assert not torch.equal(trainer.params["head.bias"].detach(), before)
+
+
+def test_crepe_train_step_makes_no_host_read(cuda):
+    """One CREPE-tiny step on the card on a batch already there: no host
+    read, a finite loss, the running statistics moved and finite."""
+    from diffsptk_tpu_torch.ops.pitch_nn import init_crepe_params
+
+    TC = _train_tool("torch_train_crepe_tiny")
+    trainer = TC.Trainer(init_crepe_params("tiny", seed=0), cuda, steps=10)
+    x, y = (torch.as_tensor(a, device=cuda)
+            for a in TC.synth_batch(np.random.default_rng(0), 8))
+    trainer.step(x, y)
+    mean = trainer.params["conv2_BN.running_mean"].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.step(x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss))
+    assert not torch.equal(trainer.params["conv2_BN.running_mean"], mean)
+    assert all(bool(torch.isfinite(p).all())
+               for p in trainer.params.values())
+
+
+def test_device_corpus_draws_equal_the_twin(cuda):
+    """The device corpus's draws from the threefry kernel equal the twin's
+    on the card and on the host bit for bit, the integers too."""
+    TF = _train_tool("torch_train_fcnf0")
+    key = prng.PRNGKey(5)
+    threefry.launches = 0
+    got = TF.corpus_draws(key, 64, cuda)
+    assert threefry.launches == TF.CORPUS_LAUNCHES
+    with pt.twins():
+        twin = TF.corpus_draws(key, 64, cuda)
+    host = TF.corpus_draws(key, 64, "cpu")
+    for name, value in got.items():
+        assert value.is_cuda and value.dtype == host[name].dtype, name
+        assert torch.equal(value, twin[name]), name
+        assert torch.equal(value.cpu(), host[name]), name
+
+
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (-0.02, 0.02), (60.0, 500.0),
+                                    (3.713572066704308, 7.170119543449628),
+                                    (-1.0, 2.0)])
+def test_threefry_uniform_entry_matches_twin(cuda, bounds):
+    """A float32 uniform draw on [minval, maxval) is one launch of the
+    kernel's uniform entry, equal to the twin's on the host bit for bit
+    (the scale and shift one fused multiply-add on both)."""
+    key = prng.PRNGKey(21)
+    threefry.launches = 0
+    got = threefry.uniform(key, (3, 50001), torch.float32, cuda, *bounds)
+    assert threefry.launches == 1
+    want = prng.uniform(key, (3, 50001), torch.float32, *bounds)
+    assert torch.equal(got.cpu(), want)

@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -242,3 +243,130 @@ def test_make_mesh_asks_for_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_mesh((1, 1))
+
+
+SUBPACKAGES = ("models", "kernels", "utils")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackages_export_the_jax_names(sub):
+    """Every public name of the JAX package's ``models``, ``kernels`` and
+    ``utils`` is the port's counterpart's too, of the same kind (as
+    ``tests/test_torch_functional.py::test_all_shared_names`` holds the
+    top level), and so are the submodules they import by name."""
+    import importlib
+    import inspect
+    import types
+
+    jmod = importlib.import_module(f"diffsptk_tpu.{sub}")
+    pmod = importlib.import_module(f"diffsptk_tpu_torch.{sub}")
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")}
+
+    names = {n for n in public(jmod)
+             if not isinstance(getattr(jmod, n), types.ModuleType)}
+    assert names, sub
+    missing = sorted(names - public(pmod))
+    assert not missing, missing
+    differ = [n for n in sorted(names)
+              if inspect.isclass(getattr(jmod, n))
+              != inspect.isclass(getattr(pmod, n))
+              or callable(getattr(jmod, n)) != callable(getattr(pmod, n))]
+    assert not differ, differ
+    with open(jmod.__file__) as f:
+        tree = ast.parse(f.read())
+    imported = [a.asname or a.name for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.module is None
+                for a in node.names]
+    assert all(isinstance(getattr(pmod, n, None), types.ModuleType)
+               for n in imported), imported
+
+
+def test_subpackage_imports_build_nothing_with_jax_blocked():
+    """``from diffsptk_tpu_torch.models import ...`` and ``.kernels import
+    ...`` work without JAX, and importing them builds no CUDA source."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['diffsptk_tpu'] = None\n"
+            "from diffsptk_tpu_torch.models import (MelCepstralVocoder,\n"
+            "    WorldVocoder)\n"
+            "from diffsptk_tpu_torch.kernels import (first_order_recurrence,\n"
+            "    lfilter, sample_wise_lpc)\n"
+            "from diffsptk_tpu_torch.utils import cas\n"
+            "from diffsptk_tpu_torch.kernels import build\n"
+            "assert not build._libs and not build._logs\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+TRAINERS = ("tools/torch_train_fcnf0.py", "tools/torch_train_crepe_tiny.py",
+            "examples/torch_train_learnable_window.py")
+
+
+def _load_script(path: str):
+    import importlib.util
+
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_trainers_import_with_jax_blocked():
+    code = ("import importlib.util, os, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['diffsptk_tpu'] = None\n"
+            f"for path in {TRAINERS!r}:\n"
+            "    name = os.path.splitext(os.path.basename(path))[0]\n"
+            "    spec = importlib.util.spec_from_file_location(name, path)\n"
+            "    mod = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            "    assert callable(mod.main)\n"
+            "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
+            "                     if sys.modules[m] is not None]\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_trainer_sources_import_no_jax():
+    bad = []
+    for path in TRAINERS:
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path}: {n}" for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", TRAINERS)
+def test_trainers_take_the_card_unless_told(path):
+    """Without ``--device`` a trainer asks for the card: with none it
+    raises before it trains; ``--device cpu`` runs on the CPU."""
+    from diffsptk_tpu_torch.core import resolve_device
+
+    mod = _load_script(path)
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main(["--steps", "1"])
+
+
+def test_learnable_window_example_trains_on_the_cpu(capsys):
+    mod = _load_script(TRAINERS[2])
+    losses = mod.main(["--device", "cpu", "--steps", "20", "--length",
+                       "3200"])
+    assert len(losses) == 20 and all(np.isfinite(losses))
+    assert losses[-1] < 0.9 * losses[0]
+    assert "correlation" in capsys.readouterr().out
