@@ -206,6 +206,22 @@ Phases (each prints one line; any failure exits non-zero):
                within CORPUS32_BARS of float64; one step's gradients
                against the CPU twin's float64; the checkpoint through
                PitchExtractionByFCNF0 on the card, a finite f0;
+ 40. precision -- the cascade's reduced-precision arms, "HIGH" (bf16x3)
+               and "DEFAULT" (one bf16 pass), on the tensor-core kernel
+               (csrc/mlsa_cascade_tc.cu): each entry and arm at full width
+               (chunked at the flagship's geometry, unchunked at P=240)
+               against its twin in the same arithmetic, HIGH against the
+               fp32 kernel, row 0 against float64 on the CPU; times,
+               device times, the twin's, the fp32 kernel's and the same
+               plan products as cuBLAS bf16 GEMMs, the bound at the bf16
+               tensor-core peak; then the slice's path: the flagship
+               MelCepstralVocoder(cascade="fused", cascade_precision=
+               "HIGH") round trip (Newton 10, HIGH 40; SNR, against the
+               fp32 kernel path), its synthesize at DEFAULT (20), the 48
+               kHz vocoder at HIGH (unchunked HIGH 50) and its synthesize
+               at DEFAULT (25);
+ 41. examples -- examples/torch_analysis_synthesis.py, torch_neural_pitch.py
+               and torch_world_vocoder.py once each on the card;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
 """
@@ -4790,6 +4806,375 @@ def run_train_pitch(torch, xw, card: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
 
+TC_PEAK = 989e12      # H100 SXM dense bf16 tensor-core rate, flop/s
+TC_TWIN_BARS = {"HIGH": 2e-5, "DEFAULT": 3e-3}   # tests/test_torch_gpu.py
+HIGH_FP32_BAR = 2e-4  # HIGH against the fp32 kernel (test_pallas_mlsa.py:76)
+DEFAULT_F64_TIMES = 10.0   # DEFAULT: within 10x its CPU distance from f64
+HIGH_CHAIN_BAR = 5e-2  # the HIGH round trip against the fp32 kernel path
+TC_COUNTERS = ("launches_high", "launches_default",
+               "launches_high_unchunked", "launches_default_unchunked")
+TC_ROWS = {("chunked", "HIGH"): "mlsa_cascade_high",
+           ("chunked", "DEFAULT"): "mlsa_cascade_bf16",
+           ("unchunked", "HIGH"): "mlsa_cascade_high_unchunked",
+           ("unchunked", "DEFAULT"): "mlsa_cascade_bf16_unchunked"}
+
+
+def tc_ptxas(log: str) -> str:
+    """ptxas' registers and spills of each instance of the tensor-core
+    stage kernel (arm, rows of its products)."""
+    out, name = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln
+        elif "tc_stage_kernel" in name and ("spill" in ln or "Used" in ln):
+            arm = "HIGH" if "ILb1E" in name else "DEFAULT"
+            rows = 32 if "Li2E" in name else 16
+            out.append(f"{arm}/{rows}: {ln.split(':', 1)[-1].strip()}")
+    return "; ".join(out) or "not in the build log"
+
+
+def tc_counts(mlsa, newton) -> dict:
+    """The cascade kernels' and the Newton kernel's launch counters."""
+    keys = ("launches", "launches_unchunked") + TC_COUNTERS
+    return {"newton": newton.launches,
+            **{k: getattr(mlsa, k) for k in keys}}
+
+
+def tc_zero(mlsa, newton) -> None:
+    newton.launches = 0
+    for k in ("launches", "launches_unchunked") + TC_COUNTERS:
+        setattr(mlsa, k, 0)
+
+
+def tc_bound(B: int, N: int, P: int, Q: int, n_blk: int, K: int, S: int,
+             passes: int, plan_bytes: int) -> tuple[float, str]:
+    """The least time of the DFT-plan cascade at one arm: per frame row and
+    stage the plan products' n_blk P x 2K + 2K x 2P multiply-adds, times
+    ``passes`` bf16 products (3 at HIGH), at the bf16 tensor-core peak;
+    against x and y once, the coefficient spectra (Q x K complex a frame)
+    once and the plans once, at the device memory's rate."""
+    macs = n_blk * P * 2 * K + 2 * K * 2 * P
+    t_ops = 2.0 * macs * B * N * S * passes / TC_PEAK * 1e3
+    nbytes = (2 * B * N * P + 2 * B * N * Q * K) * 4.0 + plan_bytes
+    t_bytes = nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tc_library_ms(torch, dev, rows: int, n_blk: int, P: int, K: int,
+                  S: int, passes: int) -> tuple[float, str]:
+    """The same plan products as cuBLAS bf16 GEMMs with fp32 results
+    (``torch.mm(..., out_dtype=torch.float32)``): per stage ``passes``
+    times (rows x n_blk P) @ (n_blk P x 2K) and (rows x 2K) @ (2K x 2P).
+    A yardstick only: the port never calls it."""
+    g = torch.Generator(dev).manual_seed(3)
+    a1, b1, a2, b2 = (
+        torch.randn(*sh, device=dev, generator=g).to(torch.bfloat16)
+        for sh in ((rows, n_blk * P), (n_blk * P, 2 * K), (rows, 2 * K),
+                   (2 * K, 2 * P)))
+
+    def call():
+        for _ in range(S * passes):
+            torch.mm(a1, b1, out_dtype=torch.float32)
+            torch.mm(a2, b2, out_dtype=torch.float32)
+    return cuda_ms(torch, call, 5), "torch.mm(bf16, bf16, out_dtype=float32)"
+
+
+def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
+             S: int, precision: str, seed: int) -> tuple[dict, str]:
+    """The tensor-core cascade through one entry at one arm, at (B, N, P,
+    M, S): against its twin in the same arithmetic (``TC_TWIN_BARS``); at
+    HIGH against the fp32 kernel (``HIGH_FP32_BAR``); row 0 against
+    float64 on the CPU, at DEFAULT within ``DEFAULT_F64_TIMES`` of the
+    twin's distance there; the kernel's time, device time, the twin's and
+    the cuBLAS GEMMs', and the bound."""
+    from diffsptk_tpu_torch.core import full_precision
+    from diffsptk_tpu_torch.kernels import mlsa
+    from diffsptk_tpu_torch.kernels.mlsa_cascade import (
+        chunked_geometry,
+        lane_aligned_nfft,
+        taylor_cascade_folded,
+    )
+
+    nfft = lane_aligned_nfft(2 * P + M + 1)
+    geo = chunked_geometry(M, P, nfft)
+    check((geo is not None) == chunked,
+          f"[precision]: P={P}, M={M} is not the expected geometry")
+    x, c, weights, a = cascade_case(torch, dev, B, N, P, M, S, seed=seed)
+    xq = x.reshape(B, N, P)
+    if chunked:
+        Q, nf = geo
+
+        def kernel():
+            return mlsa.cascade_chunked_tc_cuda(xq, c, weights, a, P, 0, nf,
+                                                precision)
+
+        def fp32():
+            return mlsa.cascade_chunked_cuda(xq, c, weights, a, P, 0, nf)
+        plan = mlsa.tc_plans(nf, P - 1, P, 0, x.device)
+    else:
+        Q = 1
+
+        def kernel():
+            return mlsa.cascade_unchunked_tc_cuda(xq, c, weights, a, P, 0,
+                                                  nfft, precision)
+
+        def fp32():
+            return mlsa.cascade_unchunked_cuda(xq, c, weights, a, P, 0, nfft)
+        plan = mlsa.tc_plans(nfft, M, P, 0, x.device)
+    kernel, fp32 = full_precision(kernel), full_precision(fp32)
+    twin = full_precision(lambda: taylor_cascade_folded(
+        x, c, weights, a, P, 0, nfft, precision))
+    y_k = kernel().reshape(B, N * P)
+    y_t, y_f = twin(), fp32().reshape(B, N * P)
+    torch.cuda.synchronize()
+    scale = float(y_t.abs().max())
+    err = float((y_k - y_t).abs().max())
+    err_f = float((y_k - y_f).abs().max()) / scale
+    check(err <= TC_TWIN_BARS[precision] * scale,
+          f"[precision] {precision} at P={P}, M={M} disagrees with its "
+          f"twin: {err / scale:.3e} of max|y| > {TC_TWIN_BARS[precision]}")
+    if precision == "HIGH":
+        check(err_f <= HIGH_FP32_BAR,
+              f"[precision] HIGH at P={P}, M={M} is {err_f:.3e} of max|y| "
+              f"from the fp32 kernel (bar {HIGH_FP32_BAR})")
+    row = [t[:1].cpu() for t in (x, c)] + [t.cpu() for t in (weights, a)]
+    y64 = taylor_cascade_folded(*(t.double() for t in row), P, 0, nfft)
+    y_cpu = taylor_cascade_folded(*row, P, 0, nfft, precision)
+    m64 = float(y64.abs().max())
+    d_cpu = float((y_cpu.double() - y64).abs().max()) / m64
+    d_k = float((y_k[:1].double().cpu() - y64).abs().max()) / m64
+    if precision == "DEFAULT":
+        check(d_k <= DEFAULT_F64_TIMES * d_cpu,
+              f"[precision] DEFAULT at P={P}, M={M}: row 0 {d_k:.3e} of "
+              f"max|y| from float64, over {DEFAULT_F64_TIMES} x the CPU "
+              f"twin's {d_cpu:.3e}")
+    del y_k, y_t, y_f
+    ms = cuda_ms(torch, kernel, 10)
+    dev_ms = kernel_device_ms(torch, kernel, "tc_stage_kernel")[0]
+    twin_ms = cuda_ms(torch, twin, 3, warm=1)
+    fp32_ms = cuda_ms(torch, fp32, 10)
+    f_hi, f_lo, g_hi, g_lo, _, n_blk, K = plan
+    passes = 3 if precision == "HIGH" else 1
+    plan_bytes = sum(t.numel() * t.element_size() for t in (
+        (f_hi, f_lo, g_hi, g_lo) if passes == 3 else (f_hi, g_hi)))
+    bound, by = tc_bound(B, N, P, Q, n_blk, K, S, passes, plan_bytes)
+    lib_ms, lib_kind = tc_library_ms(torch, dev, B * N, n_blk, P, K, S,
+                                     passes)
+    frames, rows, smem, per_sm = mlsa.tc_tile(P, Q, n_blk, K, precision)
+    blocks = -(-N // frames) * B
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    flops = 2.0 * (n_blk * P * 2 * K + 4 * K * P) * B * N * S * passes
+    summary = (f"{'chunked' if chunked else 'unchunked'} {precision} P={P} "
+               f"M={M} (Q={Q}, K={K}, n_blk={n_blk}) S={S}: |kernel-twin| "
+               f"{err / scale:.3e} of max|y| (bar "
+               f"{TC_TWIN_BARS[precision]}), |kernel-fp32 kernel| "
+               f"{err_f:.3e}, row 0 from float64: kernel {d_k:.3e}, CPU twin "
+               f"{d_cpu:.3e}; kernel {ms:.4f} ms per call ({S} launches), "
+               f"device {dev_ms:.4f} ms, {flops / 1e9:.2f} GFLOP at "
+               f"{flops / (dev_ms or ms) / 1e9:.1f} TFLOP/s; bound "
+               f"{bound:.4f} ms ({by}, {ms / bound:.1f}x); fp32 kernel "
+               f"{fp32_ms:.4f} ms; twin {twin_ms:.3f} ms; library "
+               f"({lib_kind}) {lib_ms:.4f} ms; tile {frames} frames, {rows} "
+               f"rows, {smem} bytes of shared memory; {blocks} blocks, "
+               f"{per_sm} to an SM: {blocks / (per_sm * n_sm):.2f} waves "
+               f"on {n_sm} SMs")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=twin_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms), summary
+
+
+def run_precision(torch, xs, card: str, ptxas: str) -> dict:
+    """[precision]: the cascade's reduced-precision arms on the tensor-core
+    kernel.  Each entry and arm at full width (``check_tc``): the chunked
+    one at the flagship's geometry, the unchunked one at [chain48]'s.
+    Then the slice's path, each drive with the counters zeroed just
+    before it and read just after: MelCepstralVocoder(cascade="fused",
+    cascade_precision="HIGH").analysis_synthesis on the flagship's 32 x
+    19,200 (Newton 10, the HIGH chunked entry 40; SNR at least 20 dB,
+    within ``HIGH_CHAIN_BAR`` of the fp32 kernel path), synthesize at
+    DEFAULT (20 launches; row 0 within ``DEFAULT_F64_TIMES`` of the CPU
+    twin's distance from float64), the 48 kHz vocoder at HIGH (Newton 10,
+    the unchunked HIGH entry 50; against float64 as [chain48] holds it:
+    HIGH's round trip there reads about 19 dB from x, in the twin as in
+    the kernel, so the 20 dB bar is the flagship's only) and its
+    synthesize at DEFAULT (25).  Returns the kernel line's rows."""
+    from diffsptk_tpu_torch import MelCepstralVocoder, twins
+    from diffsptk_tpu_torch.kernels import mlsa, newton
+
+    t0 = time.time()
+    rows, lines = {}, []
+    for chunked, P in ((True, 80), (False, 240)):
+        for precision in ("HIGH", "DEFAULT"):
+            row, line = check_tc(torch, "cuda", chunked, 32, 240, P, 199, 20,
+                                 precision, seed=21)
+            rows[TC_ROWS["chunked" if chunked else "unchunked",
+                         precision]] = row
+            lines.append(line)
+    for line in lines:
+        print(f"[precision] {line} | {card}", flush=True)
+
+    def drive(name, fn, want):
+        tc_zero(mlsa, newton)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in tc_counts(mlsa, newton).items() if v}
+        check(got == want, f"[precision] {name}: launches {got}, expected "
+              f"{want}")
+        return out, got
+
+    Bv, T = xs.shape
+    voc = MelCepstralVocoder(cascade="fused", cascade_precision="HIGH",
+                             device="cuda", dtype=torch.float32)
+    full = MelCepstralVocoder(cascade="fused", device="cuda",
+                              dtype=torch.float32)
+    low = MelCepstralVocoder(cascade="fused", cascade_precision="DEFAULT",
+                             device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        y, launches_a = drive("flagship HIGH round trip",
+                              lambda: voc.analysis_synthesis(xs),
+                              {"newton": 10, "launches_high": 40})
+        check(bool(torch.isfinite(y).all()) and tuple(y.shape) == (Bv, T),
+              "[precision] the HIGH round trip is not finite")
+        y_f = full.analysis_synthesis(xs)
+        snr, snr_f = snr_db(torch, xs, y), snr_db(torch, xs, y_f)
+        d_f = rel_err(torch, y, y_f)
+        check(snr >= 20.0, f"[precision] HIGH round-trip SNR {snr:.2f} dB "
+              "is below 20 dB")
+        check(d_f <= HIGH_CHAIN_BAR, f"[precision] the HIGH round trip is "
+              f"{d_f:.3e} of max|y| from the fp32 kernel path")
+        high_calls = cuda_call_ms(torch, lambda: voc.analysis_synthesis(xs),
+                                  20)
+        full_calls = cuda_call_ms(torch, lambda: full.analysis_synthesis(xs),
+                                  20)
+        mc = voc.analyze(xs)
+        e, launches_b = drive("flagship DEFAULT synthesis",
+                              lambda: low.synthesize(xs, mc),
+                              {"launches_default": 20})
+        low64 = MelCepstralVocoder(cascade="folded", device="cpu",
+                                   dtype=torch.float64)
+        e64 = low64.synthesize(xs[:1].double().cpu(), mc[:1].double().cpu())
+        low32 = MelCepstralVocoder(cascade="fused",
+                                   cascade_precision="DEFAULT", device="cpu",
+                                   dtype=torch.float32)
+        d_cpu = rel_err(torch, low32.synthesize(xs[:1].cpu(), mc[:1].cpu()),
+                        e64)
+        d_k = rel_err(torch, e[:1].cpu(), e64)
+        check(d_k <= DEFAULT_F64_TIMES * d_cpu,
+              f"[precision] DEFAULT synthesis row 0 {d_k:.3e} of max|y| "
+              f"from float64, over {DEFAULT_F64_TIMES} x the CPU's "
+              f"{d_cpu:.3e}")
+        low_ms = float(np.median(cuda_call_ms(
+            torch, lambda: low.synthesize(xs, mc), 20)))
+        full_syn_ms = float(np.median(cuda_call_ms(
+            torch, lambda: full.synthesize(xs, mc), 20)))
+        del y, y_f, e, e64
+        S48 = 25
+        xs48 = torch.as_tensor(synth_speech(32, 57600, sr=48000),
+                               device="cuda")
+        kw48 = dict(frame_length=1200, frame_period=240, fft_length=2048,
+                    cep_order=24, alpha=0.55, taylor_order=S48,
+                    cascade="fused", device="cuda", dtype=torch.float32)
+        voc48 = MelCepstralVocoder(cascade_precision="HIGH", **kw48)
+        y48, launches_c = drive("48 kHz HIGH round trip",
+                                lambda: voc48.analysis_synthesis(xs48),
+                                {"newton": 10,
+                                 "launches_high_unchunked": 2 * S48})
+        check(bool(torch.isfinite(y48).all()),
+              "[precision] the 48 kHz HIGH round trip is not finite")
+        # As [chain48]: each path against a float64 run on the card.  The
+        # 48 kHz cascades cancel heavily, so HIGH's round trip sits near 19
+        # dB from x in either path; the kernel path may lie at most 3 dB
+        # below its twin's distance from float64.
+        with twins():
+            y48_t = voc48.analysis_synthesis(xs48)
+        kw64 = dict(kw48, cascade="folded", dtype=torch.float64)
+        y48_64 = MelCepstralVocoder(**kw64).analysis_synthesis(
+            xs48.double())
+        snr48_k, snr48_t = (snr_db(torch, y48_64, y)
+                            for y in (y48, y48_t))
+        check(snr48_k >= snr48_t - 3.0,
+              f"[precision] 48 kHz HIGH round trip: kernel path "
+              f"{snr48_k:.2f} dB from float64, more than 3 dB below its "
+              f"twin's {snr48_t:.2f} dB")
+        snr48, snr48_xt, snr48_x64 = (snr_db(torch, xs48, y)
+                                      for y in (y48, y48_t, y48_64))
+        del y48_t, y48_64
+        ms48 = float(np.median(cuda_call_ms(
+            torch, lambda: voc48.analysis_synthesis(xs48), 10)))
+        mc48 = voc48.analyze(xs48)
+        low48 = MelCepstralVocoder(cascade_precision="DEFAULT", **kw48)
+        e48, launches_d = drive("48 kHz DEFAULT synthesis",
+                                lambda: low48.synthesize(xs48, mc48),
+                                {"launches_default_unchunked": S48})
+        check(bool(torch.isfinite(e48).all()),
+              "[precision] the 48 kHz DEFAULT synthesis is not finite")
+        del y48, e48, xs48
+    launches = {}
+    for got in (launches_a, launches_b, launches_c, launches_d):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    for (entry, precision), name in TC_ROWS.items():
+        key = ("launches_" + ("high" if precision == "HIGH" else "default")
+               + ("_unchunked" if entry == "unchunked" else ""))
+        rows[name]["launches"] = launches[key]
+    med, med_f = float(np.median(high_calls)), float(np.median(full_calls))
+    print(f"[precision] path: launches {launches_a} (flagship HIGH round "
+          f"trip), {launches_b} (DEFAULT synthesis), {launches_c} (48 kHz "
+          f"HIGH round trip), {launches_d} (48 kHz DEFAULT synthesis); "
+          f"HIGH round trip SNR {snr:.2f} dB (fp32 kernel path {snr_f:.2f} "
+          f"dB), {d_f:.3e} of max|y| from the fp32 kernel path (bar "
+          f"{HIGH_CHAIN_BAR}), median {med:.3f} ms a call against "
+          f"{med_f:.3f} ms (fp32 kernel, p90 "
+          f"{float(np.percentile(high_calls, 90)):.3f} / "
+          f"{float(np.percentile(full_calls, 90)):.3f}); DEFAULT synthesis "
+          f"row 0 {d_k:.3e} of max|y| from float64 (CPU twin {d_cpu:.3e}, "
+          f"bar {DEFAULT_F64_TIMES}x), median {low_ms:.3f} ms against "
+          f"{full_syn_ms:.3f} ms (fp32 kernel); 48 kHz HIGH round trip "
+          f"against float64: kernel path {snr48_k:.2f} dB, twin path "
+          f"{snr48_t:.2f} dB (kernel at most 3 dB below); SNR against x: "
+          f"kernel path {snr48:.2f} dB, twin path {snr48_xt:.2f} dB, float64 "
+          f"{snr48_x64:.2f} dB; median {ms48:.3f} ms; ptxas {ptxas}; phase "
+          f"{time.time() - t0:.1f} s | {card}", flush=True)
+    return rows
+
+
+EXAMPLES_CARD = ("torch_analysis_synthesis", "torch_neural_pitch",
+                 "torch_world_vocoder")
+
+
+def run_examples(torch, card: str) -> None:
+    """[examples]: the three one-card examples (examples/torch_*.py) once
+    each on the card, in this process, on their synthetic speech (19,200
+    samples): the round trip's SNR at least 20 dB, CREPE-tiny within 50
+    cents of YIN, WORLD's spectrogram correlation at least 0.8."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    bars = {"torch_analysis_synthesis": lambda v: v >= 20.0,
+            "torch_neural_pitch": lambda v: v <= 50.0,
+            "torch_world_vocoder": lambda v: v >= 0.8}
+    out = []
+    for name in EXAMPLES_CARD:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            value = mod.main([])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        check(bars[name](value), f"[examples] {name}: {value} misses its "
+              f"bar; it printed:\n{printed.getvalue()}")
+        first = printed.getvalue().strip().splitlines()
+        out.append(f"{name}: {value:.3f} ({took:.2f} s; "
+                   f"\"{first[-1] if name != 'torch_neural_pitch' else first[1]}\")")
+    print("[examples] " + "; ".join(out) + f" | {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4845,7 +5230,11 @@ def main() -> int:
             "spd_solve (n=24)": build.library(
                 "spd_solve").spd_solve_smem_bytes(24),
             "spd_solve (n=64)": build.library(
-                "spd_solve").spd_solve_smem_bytes(64)}
+                "spd_solve").spd_solve_smem_bytes(64),
+            "mlsa_cascade_tc HIGH (P=80, Q=3)": mlsa.tc_tile(
+                80, 3, 3, 128, "HIGH"),
+            "mlsa_cascade_tc HIGH (P=240, Q=1)": mlsa.tc_tile(
+                240, 1, 3, 384, "HIGH")}
     print(f"[build] done in {time.time() - t0:.1f} s; shared memory per "
           f"block at the flagship shapes (static for newton, dynamic for "
           f"the others; the cascade: frames, threads and bytes of its "
@@ -5198,6 +5587,12 @@ def main() -> int:
     # 39. the training paths: the pitch networks' trainers
     run_train_pitch(torch, xw, card)
 
+    # 40. the cascade's reduced-precision arms on the tensor cores, and
+    # 41. the one-card examples
+    report.update(run_precision(
+        torch, xw, card, tc_ptxas(logs.get("mlsa_cascade_tc", ""))))
+    run_examples(torch, card)
+
     kernels = []
     meta = {
         "newton": ("cuda", "diffsptk_tpu_torch/csrc/newton.cu",
@@ -5226,6 +5621,15 @@ def main() -> int:
                      "tools/train_fcnf0.py:113-189 (jax.random.uniform, "
                      "normal and randint's bits)"),
     }
+    for (entry, precision), key in TC_ROWS.items():
+        meta[key] = (
+            "cuda", "diffsptk_tpu_torch/csrc/mlsa_cascade_tc.cu",
+            "diffsptk_tpu/kernels/pallas_mlsa.py:"
+            + {("chunked", "HIGH"): "260",
+               ("chunked", "DEFAULT"): "330 (at precision DEFAULT)",
+               ("unchunked", "HIGH"): "119",
+               ("unchunked", "DEFAULT"): "175 (at precision DEFAULT)"}[
+                   entry, precision])
     for key, (route, source, replaces) in meta.items():
         r = report[key]
         kernels.append({

@@ -22,8 +22,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("newton", "mlsa_cascade", "spd_solve", "scan", "gather", "ola",
-           "threefry")
+SOURCES = ("newton", "mlsa_cascade", "mlsa_cascade_tc", "spd_solve", "scan",
+           "gather", "ola", "threefry")
 
 _libs: dict[tuple, ctypes.CDLL] = {}
 _logs: dict = {}

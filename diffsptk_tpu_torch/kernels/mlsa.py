@@ -1,17 +1,20 @@
-"""Taylor MLSA cascade: hand-written CUDA kernel and autograd Function
+"""Taylor MLSA cascade: hand-written CUDA kernels and autograd Function
 (counterpart of ``diffsptk_tpu/kernels/pallas_mlsa.py``).
 
-On a CUDA float32 tensor the S stages run as S launches of the direct
-fp32 FIR of ``csrc/mlsa_cascade.cu``, enqueued by one call, the (B, N, P)
-state in two ping-pong buffers: through its entry for the tap-chunked
-geometry (the B2 row) where the folded form takes the chunked branch,
-through its other entry otherwise (B3); both run the same kernel.  On a
-CPU tensor the cascade is its plain twin,
-``mlsa_cascade.taylor_cascade_folded``.
+On a CUDA float32 tensor the S stages run as S launches, enqueued by one
+call, the (B, N, P) state in two ping-pong buffers, through an entry for
+the tap-chunked geometry (the B2 row) where the folded form takes the
+chunked branch and through another otherwise (B3).  ``precision`` picks
+the kernel, as it picks the TPU kernel:
 
-``precision`` keeps the JAX signature.  Every value runs the fp32 kernel,
-which is at least the accuracy class (HIGH) that inverse-then-forward
-round trips need.
+* ``"HIGHEST"``: the direct fp32 FIR of ``csrc/mlsa_cascade.cu``;
+* ``"HIGH"`` (bf16x3) and ``"DEFAULT"`` (one bf16 pass): the DFT-plan
+  form on the tensor cores, ``csrc/mlsa_cascade_tc.cu``.  A request at
+  these settings runs that kernel or raises; it never falls back.
+
+On a CPU tensor, or inside ``twins()``, the cascade is its plain twin,
+``mlsa_cascade.taylor_cascade_folded``, in the same arithmetic.  The
+backward is the folded fp32 form at every precision, as the JAX VJP is.
 """
 
 from __future__ import annotations
@@ -22,17 +25,38 @@ import functools
 import torch
 
 from . import build
-from .mlsa_cascade import chunked_geometry, taylor_cascade_folded
+from .mlsa_cascade import (
+    PRECISIONS,
+    cascade_plan,
+    chunk_split,
+    chunked_geometry,
+    coef_spectrum,
+    split_hi_lo,
+    taylor_cascade_folded,
+)
 from .state import use_twins
 
-PRECISIONS = ("DEFAULT", "HIGH", "HIGHEST")
-
 launches = 0
-"""Launches of the cascade kernel through the tap-chunked entry so far,
-one per stage (the twin does not count)."""
+"""Launches of the fp32 cascade kernel through the tap-chunked entry so
+far, one per stage (the twin does not count)."""
 
 launches_unchunked = 0
-"""Launches through the unchunked entry so far, one per stage."""
+"""Launches through the fp32 kernel's unchunked entry so far, one per
+stage."""
+
+launches_high = 0
+"""Launches of the tensor-core kernel at "HIGH" through its tap-chunked
+entry so far, one per stage."""
+
+launches_default = 0
+"""The same at "DEFAULT"."""
+
+launches_high_unchunked = 0
+"""Launches of the tensor-core kernel at "HIGH" through its unchunked
+entry so far, one per stage."""
+
+launches_default_unchunked = 0
+"""The same at "DEFAULT"."""
 
 
 @functools.cache
@@ -55,24 +79,29 @@ def tile(P: int, M: int):
     return None if nbytes < 0 else (frames.value, threads.value, nbytes)
 
 
-def _run(entry: str, x, c, weights, a, P: int, advance: int, defines=()):
-    """Check the arguments and enqueue the S stages through ``entry``;
-    returns (y, S)."""
+def _checked(x, c, weights, a, P: int):
+    """Check the arguments of a cascade kernel's entry: (B, N, M, S) and
+    the weights and Taylor coefficients as float32 on x's device."""
     if not (x.is_cuda and c.is_cuda):
         raise ValueError("the cascade kernel takes CUDA tensors")
     if x.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError("the cascade kernel takes float32")
     B, N, P_ = x.shape
-    M = c.shape[-1] - 1
     if P_ != P or c.shape[:2] != (B, N):
         raise ValueError(
             f"x must be (B, N, P) and c (B, N, M+1); got {tuple(x.shape)} "
             f"and {tuple(c.shape)}")
     if weights.shape != a.shape or weights.ndim != 1:
         raise ValueError("weights and a must both be (S+1,)")
-    S = weights.shape[0] - 1
     w, a = (t.to(device=x.device, dtype=torch.float32).contiguous()
             for t in (weights, a))
+    return (B, N, c.shape[-1] - 1, weights.shape[0] - 1), w, a
+
+
+def _run(entry: str, x, c, weights, a, P: int, advance: int, defines=()):
+    """Check the arguments and enqueue the S stages through ``entry``;
+    returns (y, S)."""
+    (B, N, M, S), w, a = _checked(x, c, weights, a, P)
     if S == 0:
         return a[0] * x, 0
     with torch.cuda.device(x.device):
@@ -134,18 +163,175 @@ def cascade_unchunked_cuda(x: torch.Tensor, c: torch.Tensor,
     return y
 
 
-def _cascade(x, c, weights, a, P, advance, nfft):
-    """The kernel on the card, the folded twin on the CPU or in twins()."""
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def fragments(b: torch.Tensor) -> torch.Tensor:
+    """A (K, N) matrix (K a multiple of 16, N of 8) in the order of
+    ``mma.m16n8k16``'s B fragments: (K/16, N/8, 32 lanes, 4).  Lane
+    4 g + t of tile (kt, nt) holds rows 16 kt + 2t + (0, 1, 8, 9) of
+    column 8 nt + g."""
+    K, N = b.shape
+    return b.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(
+        0, 4, 5, 2, 1, 3).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def tc_plans(nfft: int, m: int, p: int, advance: int, device):
+    """The tensor-core kernel's plans for a geometry, made once per
+    device: (f_hi, f_lo, g_hi, g_lo, r0, n_blk, K).
+
+    The forward plan is ``cascade_plan``'s Ffwd as one (n_blk P, 2K)
+    matrix, its real and imaginary halves each padded to Kp (K rounded up
+    to 16) columns and its rows to a multiple of 16; the inverse plan
+    stacks the first 2P columns (lo (1 - lam), hi lam) of Ginv_re over
+    Ginv_im's, each padded to Kp rows, its columns to a multiple of 32.
+    Each is rounded to float32 and split exactly into bf16 hi and lo
+    halves (``mlsa_cascade.split_hi_lo``), in fragment order."""
+    Ffwd, Ginv_re, Ginv_im, r0, n_blk = cascade_plan(nfft, m, p, advance)
+    K = nfft // 2 + 1
+    Kp = _round_up(K, 16)
+    f64 = torch.float64
+    fwd = torch.as_tensor(Ffwd, dtype=f64).reshape(n_blk * p, 2 * K)
+    f = torch.zeros(_round_up(n_blk * p, 16), 2 * Kp, dtype=f64)
+    f[:n_blk * p, :K] = fwd[:, :K]
+    f[:n_blk * p, Kp:Kp + K] = fwd[:, K:]
+    g = torch.zeros(2 * Kp, _round_up(2 * p, 32), dtype=f64)
+    g[:K, :2 * p] = torch.as_tensor(Ginv_re[:, :2 * p])
+    g[Kp:Kp + K, :2 * p] = torch.as_tensor(Ginv_im[:, :2 * p])
+    out = []
+    for plan in (f, g):
+        out += [fragments(h.to(torch.bfloat16)).to(device)
+                for h in split_hi_lo(plan.float())]
+    return (*out, r0, n_blk, K)
+
+
+@functools.cache
+def _tc_entry(name: str):
+    fn = getattr(build.library("mlsa_cascade_tc"), name)
+    n_int = 8 if "unchunked" in name else 9
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * n_int + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def tc_tile(P: int, Q: int, n_blk: int, K: int, precision: str):
+    """The tensor-core kernel's tile: (frames per block, rows of its
+    products, shared memory bytes, blocks that fit on one SM), or None
+    where no tile fits."""
+    fn = build.library("mlsa_cascade_tc").mlsa_cascade_tc_tile
+    frames, rows, per_sm = (ctypes.c_int(0) for _ in range(3))
+    nbytes = fn(P, Q, n_blk, K, int(precision == "HIGH"),
+                ctypes.byref(frames), ctypes.byref(rows),
+                ctypes.byref(per_sm))
+    return None if nbytes < 0 else (frames.value, rows.value, nbytes,
+                                    per_sm.value)
+
+
+def _run_tc(x, c, weights, a, P: int, advance: int, nfft: int,
+            precision: str, chunked: bool):
+    """Check the arguments and enqueue the S stages of the tensor-core
+    kernel through its chunked (transform length ``nfft`` = nfft_c) or
+    unchunked entry; returns (y, S)."""
+    if precision not in ("HIGH", "DEFAULT"):
+        raise ValueError('the tensor-core cascade takes "HIGH" or "DEFAULT"')
+    (B, N, M, S), w, a = _checked(x, c, weights, a, P)
+    if S == 0:
+        return a[0] * x, 0
+    with torch.cuda.device(x.device):
+        if chunked:
+            cch, Q = chunk_split(c, P)
+            cre, cim = coef_spectrum(cch, nfft)           # (B, N, Q, K)
+            plan = tc_plans(nfft, P - 1, P, advance, x.device)
+        else:
+            Q = 1
+            cre, cim = coef_spectrum(c, nfft)             # (B, N, K)
+            plan = tc_plans(nfft, M, P, advance, x.device)
+        f_hi, f_lo, g_hi, g_lo, r0, n_blk, K = plan
+        if tc_tile(P, Q, n_blk, K, precision) is None:
+            raise ValueError(
+                f"the tensor-core cascade has no tile for P={P}, Q={Q}, "
+                f"K={K}")
+        x = x.contiguous()
+        cre, cim = cre.contiguous(), cim.contiguous()
+        buf = x.new_empty((2,) + x.shape)
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptrs = [t.data_ptr() for t in (x, cre, cim, f_hi, f_lo, g_hi, g_lo,
+                                       w, a, buf, y)]
+        ints = ([B, N, P, Q, r0, n_blk, K] if chunked
+                else [B, N, P, r0, n_blk, K])
+        entry = ("mlsa_cascade_tc_chunked_f32" if chunked
+                 else "mlsa_cascade_tc_unchunked_f32")
+        err = _tc_entry(entry)(*ptrs, *ints, S, int(precision == "HIGH"),
+                               stream)
+    build.check(err, "mlsa_cascade_tc stage")
+    return y, S
+
+
+def cascade_chunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
+                            weights: torch.Tensor, a: torch.Tensor, P: int,
+                            advance: int, nfft_c: int,
+                            precision: str) -> torch.Tensor:
+    """The cascade on the card's tensor cores at "HIGH" or "DEFAULT", at
+    the tap-chunked geometry (the B2 row) with chunk transform length
+    ``nfft_c``.  x (B, N, P) float32, c (B, N, M+1) float32 ->
+    y (B, N, P).  Raises on what the kernel does not take."""
+    global launches_high, launches_default
+    if nfft_c < 3 * P:
+        raise ValueError(f"nfft_c must be at least 3P = {3 * P}")
+    y, S = _run_tc(x, c, weights, a, P, advance, nfft_c, precision, True)
+    if precision == "HIGH":
+        launches_high += S
+    else:
+        launches_default += S
+    return y
+
+
+def cascade_unchunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
+                              weights: torch.Tensor, a: torch.Tensor, P: int,
+                              advance: int, nfft: int,
+                              precision: str) -> torch.Tensor:
+    """The cascade on the card's tensor cores at "HIGH" or "DEFAULT", at
+    every other geometry (the B3 row), transform length ``nfft``
+    (>= 2P+M+1).  x (B, N, P) float32, c (B, N, M+1) float32 ->
+    y (B, N, P).  Raises on what the kernel does not take."""
+    global launches_high_unchunked, launches_default_unchunked
+    M = c.shape[-1] - 1
+    if nfft < 2 * P + M + 1:
+        raise ValueError(f"nfft must be at least 2P+M+1 = {2 * P + M + 1}")
+    y, S = _run_tc(x, c, weights, a, P, advance, nfft, precision, False)
+    if precision == "HIGH":
+        launches_high_unchunked += S
+    else:
+        launches_default_unchunked += S
+    return y
+
+
+def _cascade(x, c, weights, a, P, advance, nfft, precision="HIGHEST"):
+    """The kernel of ``precision`` on the card, the folded twin in the
+    same arithmetic on the CPU or in twins()."""
     M = c.shape[-1] - 1
     if not x.is_cuda or use_twins():
-        return taylor_cascade_folded(x, c, weights, a, P, advance, nfft)
+        return taylor_cascade_folded(x, c, weights, a, P, advance, nfft,
+                                     precision)
     chunked = chunked_geometry(M, P, nfft)
     N = c.shape[-2]
     T = x.shape[-1]
     xb = x.reshape(-1, N, P)
     cb = torch.broadcast_to(c, x.shape[:-1] + c.shape[-2:]).reshape(
         -1, N, M + 1)
-    if chunked is None:
+    if precision in ("HIGH", "DEFAULT"):
+        if chunked is None:
+            y = cascade_unchunked_tc_cuda(xb, cb, weights, a, P, advance,
+                                          nfft, precision)
+        else:
+            y = cascade_chunked_tc_cuda(xb, cb, weights, a, P, advance,
+                                        chunked[1], precision)
+    elif chunked is None:
         y = cascade_unchunked_cuda(xb, cb, weights, a, P, advance, nfft)
     else:
         y = cascade_chunked_cuda(xb, cb, weights, a, P, advance, chunked[1])
@@ -153,15 +339,16 @@ def _cascade(x, c, weights, a, P, advance, nfft):
 
 
 class TaylorCascade(torch.autograd.Function):
-    """Forward: the kernel on the card, the folded twin on the CPU.
-    Backward: autograd through the folded twin (as the JAX VJP
-    differentiates the folded XLA form)."""
+    """Forward: the kernel of ``precision`` on the card, the folded twin
+    on the CPU.  Backward: autograd through the folded fp32 twin whatever
+    the forward's precision (as the JAX VJP differentiates the folded XLA
+    form)."""
 
     @staticmethod
-    def forward(ctx, x, c, weights, a, P, advance, nfft):
+    def forward(ctx, x, c, weights, a, P, advance, nfft, precision):
         ctx.save_for_backward(x, c, weights, a)
         ctx.geometry = (P, advance, nfft)
-        return _cascade(x, c, weights, a, P, advance, nfft)
+        return _cascade(x, c, weights, a, P, advance, nfft, precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -172,19 +359,24 @@ class TaylorCascade(torch.autograd.Function):
                    for t in (x, c, weights, a)]
             y = taylor_cascade_folded(*ins, P, advance, nfft)
             grads = torch.autograd.grad(y, ins, g, allow_unused=True)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def taylor_cascade(x, c, weights, a, P, advance, nfft, precision="HIGHEST"):
     """Fused Taylor-cascade MLSA filter.
 
     x (..., T); c (..., N, M+1) stage coefficients; weights/a (S+1,).
-    Without a gradient to track, the call skips the autograd Function and
-    its host-side bookkeeping.
+    ``precision``: "HIGHEST" (fp32), "HIGH" (bf16x3) or "DEFAULT" (one
+    bf16 pass; about 1e-3 of max|y| from float64 for one synthesis pass,
+    not for inverse-then-forward round trips, which re-amplify it).  The
+    twin ignores it at float64; the kernels take float32 only.  Without a
+    gradient to track, the call skips the autograd Function and its
+    host-side bookkeeping.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, c, weights, a)):
-        return TaylorCascade.apply(x, c, weights, a, P, advance, nfft)
-    return _cascade(x, c, weights, a, P, advance, nfft)
+        return TaylorCascade.apply(x, c, weights, a, P, advance, nfft,
+                                   precision)
+    return _cascade(x, c, weights, a, P, advance, nfft, precision)

@@ -15,9 +15,25 @@ Long filters (M+1 > P) are tap-chunked: ``y[s] = sum_j (c[jP:jP+P] *
 x)[s - jP]``, every chunk on the small (P-1) geometry whose forward
 transform is a row shift of one shared plan.  The two branches,
 :func:`taylor_cascade_chunked` and :func:`taylor_cascade_unchunked`, are
-the plain twins of the CUDA cascade kernel's two entries
-(kernels/mlsa.py), which compute the same function as a direct FIR;
-:func:`taylor_cascade_direct` follows the kernel's own arithmetic.
+the plain twins of the CUDA cascade kernels' two entries
+(kernels/mlsa.py); :func:`taylor_cascade_direct` follows the fp32
+kernel's own arithmetic, a direct FIR.
+
+``precision`` sets the arithmetic of the plan products where the cascade
+runs float32, as the TPU's dot precisions do:
+
+* ``None`` or ``"HIGHEST"``: full fp32 matmuls;
+* ``"HIGH"`` (bf16x3): with ``a = ah + al`` and ``b = bh + bl`` split
+  exactly into bf16 halves (:func:`split_hi_lo`), every product is
+  ``ah bh + ah bl + al bh`` summed in fp32;
+* ``"DEFAULT"``: one bf16 product ``ah bh``, fp32 sums.
+
+The plans are split once a geometry (:func:`split_plans`); the
+activations (the stage input rows and Y) every stage.  The complex
+products with the coefficient spectra stay fp32, as the TPU kernels keep
+them.  Other dtypes ignore ``precision``.  The twins do this arithmetic
+explicitly: each operand rounded to bf16 and back, so that every product
+is exact in fp32, and fp32 matmuls for the sums.
 """
 
 from __future__ import annotations
@@ -27,6 +43,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+PRECISIONS = ("DEFAULT", "HIGH", "HIGHEST")
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,6 +133,44 @@ def coef_spectrum(c: torch.Tensor, nfft: int):
     return torch.matmul(c, Cre), torch.matmul(c, Cim)
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bf16 value (ties to even), kept in
+    ``t``'s dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def split_hi_lo(t: torch.Tensor):
+    """The exact split ``t = hi + lo`` of float32 ``t`` into bf16 values,
+    ``hi = bf16(t)``, ``lo = bf16(t - hi)``, kept in float32."""
+    hi = bf16_round(t)
+    return hi, bf16_round(t - hi)
+
+
+def arm(precision, dtype):
+    """The arithmetic a cascade of ``dtype`` takes at ``precision``:
+    ``"HIGH"`` or ``"DEFAULT"`` for float32 at those settings, else None
+    (full precision).  Raises on an unknown precision."""
+    if precision is not None and precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}")
+    if dtype != torch.float32 or precision in (None, "HIGHEST"):
+        return None
+    return precision
+
+
+def _dot(a: torch.Tensor, b, precision) -> torch.Tensor:
+    """``a @ b`` in the arithmetic of ``precision`` (:func:`arm`); ``b``
+    is the plan, or its (hi, lo) split where ``precision`` is set."""
+    if precision is None:
+        return torch.matmul(a, b)
+    bh, bl = b
+    ah = bf16_round(a)
+    if precision == "DEFAULT":
+        return torch.matmul(ah, bh)
+    al = bf16_round(a - ah)
+    return (torch.matmul(ah, bh) + torch.matmul(ah, bl)
+            + torch.matmul(al, bh))
+
+
 @functools.lru_cache(maxsize=64)
 def plans(nfft: int, m: int, p: int, advance: int, dtype, device):
     """``cascade_plan`` as tensors of ``dtype`` on ``device``, made once
@@ -126,6 +182,25 @@ def plans(nfft: int, m: int, p: int, advance: int, dtype, device):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     return t(Ffwd), t(Ginv_re), t(Ginv_im), r0, n_blk
+
+
+@functools.lru_cache(maxsize=64)
+def split_plans(nfft: int, m: int, p: int, advance: int, device):
+    """The float32 plans of :func:`plans` split once into their bf16
+    (hi, lo) halves (:func:`split_hi_lo`): a list of n_blk forward pairs,
+    then the Ginv_re and Ginv_im pairs, then r0, n_blk."""
+    Ffwd, Ginv_re, Ginv_im, r0, n_blk = plans(nfft, m, p, advance,
+                                              torch.float32, device)
+    return ([split_hi_lo(f) for f in Ffwd], split_hi_lo(Ginv_re),
+            split_hi_lo(Ginv_im), r0, n_blk)
+
+
+def _arm_plans(nfft: int, m: int, p: int, advance: int, dtype, device,
+               precision):
+    """:func:`plans`, or :func:`split_plans` where ``precision`` is set."""
+    if precision is None:
+        return plans(nfft, m, p, advance, dtype, device)
+    return split_plans(nfft, m, p, advance, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,24 +264,25 @@ def _pad_rows(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
     return F.pad(x, (0, 0, before, after))
 
 
-def _stage(xq, cre, cim, Ffwd, Ginv_re, Ginv_im, r0, n_blk, P, K):
+def _stage(xq, cre, cim, Ffwd, Ginv_re, Ginv_im, r0, n_blk, P, K,
+           precision=None):
     """One folded MLSA stage on the (..., N, P) frame grid."""
     N = xq.shape[-2]
     xpad = _pad_rows(xq, r0, n_blk - 1 - r0)
     X = None
     for r in range(n_blk):
-        part = torch.matmul(xpad[..., r:r + N, :], Ffwd[r])
+        part = _dot(xpad[..., r:r + N, :], Ffwd[r], precision)
         X = part if X is None else X + part               # (..., N, 2K)
     Xre, Xim = X[..., :K], X[..., K:]
     Yre = Xre * cre - Xim * cim
     Yim = Xre * cim + Xim * cre
-    V = torch.matmul(Yre, Ginv_re) + torch.matmul(Yim, Ginv_im)
+    V = _dot(Yre, Ginv_re, precision) + _dot(Yim, Ginv_im, precision)
     hi = torch.cat([V[..., 1:, P:2 * P], V[..., N - 1:, 2 * P:]], dim=-2)
     return V[..., :P] + hi
 
 
 def _stage_chunked(xq, cres, cims, Ffwd, Ginv_re, Ginv_im, r0, n_blk,
-                   P, K, Q):
+                   P, K, Q, precision=None):
     """One tap-chunked MLSA stage on the (..., N, P) frame grid.
 
     cres/cims: (..., N, Q, K) per-chunk coefficient spectra.  Chunk j's
@@ -217,7 +293,7 @@ def _stage_chunked(xq, cres, cims, Ffwd, Ginv_re, Ginv_im, r0, n_blk,
     xpad = _pad_rows(xq, r0 + Q - 1, n_blk - 1 - r0)
     X = None
     for r in range(n_blk):
-        part = torch.matmul(xpad[..., r:r + NE, :], Ffwd[r])
+        part = _dot(xpad[..., r:r + NE, :], Ffwd[r], precision)
         X = part if X is None else X + part               # (..., NE, 2K)
     Yre = Yim = None
     for j in range(Q):
@@ -230,7 +306,7 @@ def _stage_chunked(xq, cres, cims, Ffwd, Ginv_re, Ginv_im, r0, n_blk,
         yim = Xre * cim + Xim * cre
         Yre = yre if Yre is None else Yre + yre
         Yim = yim if Yim is None else Yim + yim
-    V = torch.matmul(Yre, Ginv_re) + torch.matmul(Yim, Ginv_im)
+    V = _dot(Yre, Ginv_re, precision) + _dot(Yim, Ginv_im, precision)
     hi = torch.cat([V[..., 1:, P:2 * P], V[..., N - 1:, 2 * P:]], dim=-2)
     return V[..., :P] + hi
 
@@ -255,17 +331,20 @@ def chunked_geometry(M: int, P: int, nfft: int):
 
 def taylor_cascade_chunked(x: torch.Tensor, c: torch.Tensor,
                            weights: torch.Tensor, a: torch.Tensor, P: int,
-                           advance: int, nfft_c: int) -> torch.Tensor:
+                           advance: int, nfft_c: int,
+                           precision=None) -> torch.Tensor:
     """The tap-chunked cascade with chunk transform length ``nfft_c``:
-    the plain twin of the CUDA cascade kernel (kernels/mlsa.py).
+    the plain twin of the CUDA cascade kernels' chunked entry
+    (kernels/mlsa.py), in the arithmetic of ``precision``.
 
     x (..., T); c (..., N, M+1); weights/a (S+1,).
     """
+    precision = arm(precision, x.dtype)
     T = x.shape[-1]
     N = c.shape[-2]
     K = nfft_c // 2 + 1
-    Ffwd, Ginv_re, Ginv_im, r0, n_blk = plans(nfft_c, P - 1, P, advance,
-                                              x.dtype, x.device)
+    Ffwd, Ginv_re, Ginv_im, r0, n_blk = _arm_plans(
+        nfft_c, P - 1, P, advance, x.dtype, x.device, precision)
     cch, Q = chunk_split(c, P)
     cres, cims = coef_spectrum(cch, nfft_c)                # (..., N, Q, K)
     cres = cres.to(x.dtype)
@@ -274,34 +353,37 @@ def taylor_cascade_chunked(x: torch.Tensor, c: torch.Tensor,
     y = a[0] * xq
     for s in range(1, a.shape[0]):
         xq = _stage_chunked(xq, cres, cims, Ffwd, Ginv_re, Ginv_im,
-                            r0, n_blk, P, K, Q) * weights[s]
+                            r0, n_blk, P, K, Q, precision) * weights[s]
         y = y + a[s] * xq
     return y.reshape(x.shape[:-1] + (T,))
 
 
 def taylor_cascade_unchunked(x: torch.Tensor, c: torch.Tensor,
                              weights: torch.Tensor, a: torch.Tensor, P: int,
-                             advance: int, nfft: int) -> torch.Tensor:
+                             advance: int, nfft: int,
+                             precision=None) -> torch.Tensor:
     """The monolithic cascade: all M+1 taps on the full transform of
     length ``nfft`` (>= 2P+M+1).  The plain twin of the CUDA cascade
-    kernel's unchunked entry (kernels/mlsa.py).
+    kernels' unchunked entry (kernels/mlsa.py), in the arithmetic of
+    ``precision``.
 
     x (..., T); c (..., N, M+1); weights/a (S+1,).
     """
+    precision = arm(precision, x.dtype)
     M = c.shape[-1] - 1
     T = x.shape[-1]
     N = c.shape[-2]
     xq = x.reshape(x.shape[:-1] + (N, P))
     K = nfft // 2 + 1
-    Ffwd, Ginv_re, Ginv_im, r0, n_blk = plans(nfft, M, P, advance, x.dtype,
-                                              x.device)
+    Ffwd, Ginv_re, Ginv_im, r0, n_blk = _arm_plans(
+        nfft, M, P, advance, x.dtype, x.device, precision)
     cre, cim = coef_spectrum(c, nfft)
     cre = cre.to(x.dtype)
     cim = cim.to(x.dtype)
     y = a[0] * xq
     for s in range(1, a.shape[0]):
         xq = _stage(xq, cre, cim, Ffwd, Ginv_re, Ginv_im, r0, n_blk,
-                    P, K) * weights[s]
+                    P, K, precision) * weights[s]
         y = y + a[s] * xq
     return y.reshape(x.shape[:-1] + (T,))
 
@@ -313,16 +395,19 @@ def taylor_cascade_folded(x: torch.Tensor, c: torch.Tensor,
     """Taylor-cascade MLSA filter, folded-plan formulation.
 
     x (..., T) float; c (..., N, M+1) stage coefficients (shared across
-    stages); weights/a (S+1,) Taylor stage weights.  Every matmul runs in
-    full precision; ``precision`` is accepted for the JAX signature.
+    stages); weights/a (S+1,) Taylor stage weights.  ``precision`` (None,
+    "HIGHEST", "HIGH" or "DEFAULT") sets the plan products' arithmetic
+    where x is float32 (see the module's docstring); None is full fp32,
+    where the JAX package's folded form defaults to HIGH.
     """
     M = c.shape[-1] - 1
     chunked = chunked_geometry(M, P, nfft)
     if chunked is not None:
         return taylor_cascade_chunked(x, c, weights, a, P, advance,
-                                      chunked[1])
+                                      chunked[1], precision)
 
-    return taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft)
+    return taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft,
+                                    precision)
 
 
 def taylor_cascade_direct(x: torch.Tensor, c: torch.Tensor,

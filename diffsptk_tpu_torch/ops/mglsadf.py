@@ -93,9 +93,12 @@ class MultiStageFIRFilter(nn.Module):
         self.phase = phase
         self.frame_period = frame_period
         # "folded": plain torch matmul plans; "fused": the CUDA cascade
-        # kernel on the card; "stages": one FFT filter per stage.  The
-        # same math; every matmul is full fp32 whatever
-        # cascade_precision says.
+        # kernels on the card; "stages": one FFT filter per stage.  The
+        # same math.  Where the cascade runs float32, cascade_precision
+        # sets the plan products' arithmetic of "folded" and "fused"
+        # (kernels/mlsa.py): None and "HIGHEST" full fp32 (the JAX
+        # package's folded None means HIGH), "HIGH" bf16x3, "DEFAULT" one
+        # bf16 pass.
         self.cascade = cascade
         self.cascade_precision = cascade_precision
 
@@ -182,7 +185,7 @@ class MultiStageFIRFilter(nn.Module):
                                    **kw)
             else:
                 y = taylor_cascade_folded(x, c, self.weights, a, P, advance,
-                                          nfft)
+                                          nfft, self.cascade_precision)
         else:
             y = x * a[0]
             for i in range(1, a.shape[0]):

@@ -13,6 +13,7 @@ import argparse
 import os
 import sys
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
@@ -20,24 +21,7 @@ import torch
 
 import diffsptk_tpu_torch as pt
 from diffsptk_tpu_torch.core import resolve_device
-from diffsptk_tpu_torch.kernels import lfilter
-
-
-def synthetic_speech(length: int, sample_rate: int = 16000,
-                     seed: int = 0) -> torch.Tensor:
-    """A pulse train whose f0 glides from 90-140 Hz to 180-260 Hz through
-    formants at 700, 1220 and 2600 Hz, plus 1e-3 white noise (float64)."""
-    rng = np.random.default_rng(seed)
-    a = np.array([1.0])
-    for f, bw in ((700.0, 130.0), (1220.0, 70.0), (2600.0, 160.0)):
-        r = np.exp(-np.pi * bw / sample_rate)
-        a = np.convolve(a, [1.0, -2 * r * np.cos(2 * np.pi * f / sample_rate),
-                            r * r])
-    f0 = np.linspace(rng.uniform(90, 140), rng.uniform(180, 260), length)
-    pulses = np.diff(np.floor(np.cumsum(f0 / sample_rate)), prepend=0.0)
-    x = lfilter([1.0], a, torch.as_tensor(pulses)).numpy()
-    x = 0.5 * x / np.abs(x).max() + 1e-3 * rng.standard_normal(length)
-    return torch.as_tensor(x)
+from torch_common import synthetic_speech
 
 
 def main(argv=None) -> list:

@@ -11,7 +11,9 @@ port's machine need not have).  This file imports no JAX.
 Tolerances: the Newton kernel within 2e-4 (rtol and atol) of its twin,
 the cascade kernel (both entries) within 1e-5 of max|y| of the folded
 twin and of the direct plain version (fp32 arithmetic in another order
-than the twin's matmuls and the direct version's sums); the windowed
+than the twin's matmuls and the direct version's sums); the tensor-core
+cascade (both entries, HIGH and DEFAULT) within ``TC_BARS`` of its twin
+in the same arithmetic, equal to itself replayed in a CUDA graph; the windowed
 gather equal to
 its twin (a copy); the overlap-add and the gather's backward within 1e-5
 of their twins (sums in another order than index_add's), and the
@@ -566,6 +568,186 @@ def test_vocoder_48k_takes_the_unchunked_kernel(cuda):
         want = voc.analysis_synthesis(x)
     assert y.shape == x.shape and torch.isfinite(y).all()
     assert float((y - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+# The tensor-core cascade (csrc/mlsa_cascade_tc.cu) against its twin in
+# the same arithmetic: HIGH within 2e-5 of max|y| (fp32 sums in another
+# order move a value's lo half by a bf16 step: 0.6e-6 to 4.7e-6 on the
+# card), DEFAULT within 3e-3 (one bf16 step of an activation: 3e-4 to
+# 1.0e-3), the arm's own class.
+TC_BARS = {"HIGH": 2e-5, "DEFAULT": 3e-3}
+TC_COUNTERS = ("launches_high", "launches_default",
+               "launches_high_unchunked", "launches_default_unchunked")
+
+
+def _tc_counts():
+    return {k: getattr(mlsa, k) for k in TC_COUNTERS + (
+        "launches", "launches_unchunked")}
+
+
+def _tc_delta(before):
+    return {k: v - before[k] for k, v in _tc_counts().items() if
+            v != before[k]}
+
+
+@pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("B,N,P,M,S,advance", [(1, 5, 16, 39, 1, 0),
+                                               (2, 40, 16, 39, 4, 0),
+                                               (3, 61, 80, 199, 20, 0),
+                                               (2, 30, 18, 50, 3, 2),
+                                               (1, 12, 16, 239, 3, 0)])
+def test_tc_cascade_chunked_matches_twin(cuda, precision, B, N, P, M, S,
+                                         advance):
+    """The chunked entry: one tile, ragged tiles, the flagship geometry,
+    P not a multiple of 8 with advance > 0, Q = 15; S launches on the
+    arm's counter and no other."""
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=11)
+    nfft_c = lane_aligned_nfft(3 * P)
+    before = _tc_counts()
+    y = mlsa.cascade_chunked_tc_cuda(x.reshape(B, N, P), c, weights, a, P,
+                                     advance, nfft_c, precision)
+    key = "launches_high" if precision == "HIGH" else "launches_default"
+    assert _tc_delta(before) == {key: S}
+    want = taylor_cascade_chunked(x, c, weights, a, P, advance, nfft_c,
+                                  precision)
+    err = float((y.reshape(B, N * P) - want).abs().max())
+    assert err <= TC_BARS[precision] * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("B,N,P,M,S,advance", [(4, 50, 240, 199, 20, 0),
+                                               (2, 13, 16, 39, 4, 0),
+                                               (3, 9, 18, 50, 3, 3),
+                                               (2, 40, 80, 79, 5, 0)])
+def test_tc_cascade_unchunked_matches_twin(cuda, precision, B, N, P, M, S,
+                                           advance):
+    """The unchunked entry at [chain48]'s P=240, a padded half spectrum
+    (nfft 128, K = 65) and P not a multiple of 8."""
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=12)
+    nfft = (lane_aligned_nfft(2 * P + M + 1) if P >= 80
+            else 1 << int(np.ceil(np.log2(2 * P + M + 1))))
+    assert chunked_geometry(M, P, nfft) is None
+    before = _tc_counts()
+    y = mlsa.cascade_unchunked_tc_cuda(x.reshape(B, N, P), c, weights, a, P,
+                                       advance, nfft, precision)
+    key = ("launches_high_unchunked" if precision == "HIGH"
+           else "launches_default_unchunked")
+    assert _tc_delta(before) == {key: S}
+    want = taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft,
+                                    precision)
+    err = float((y.reshape(B, N * P) - want).abs().max())
+    assert err <= TC_BARS[precision] * float(want.abs().max()), err
+
+
+def test_tc_cascade_entry_dispatch_and_no_fallback(cuda):
+    """taylor_cascade picks the kernel by precision: HIGHEST the fp32
+    FIR, HIGH / DEFAULT the tensor-core kernel; float64 on the card is
+    refused at every precision, and a geometry with no tile raises
+    rather than falling back."""
+    B, N, P, M, S = 2, 50, 80, 199, 20
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=13)
+    nfft = lane_aligned_nfft(2 * P + M + 1)
+    for precision, key in (("HIGHEST", "launches"),
+                           ("HIGH", "launches_high"),
+                           ("DEFAULT", "launches_default")):
+        before = _tc_counts()
+        y = mlsa.taylor_cascade(x, c, weights, a, P, 0, nfft, precision)
+        assert _tc_delta(before) == {key: S}
+        with pt.twins():
+            want = mlsa.taylor_cascade(x, c, weights, a, P, 0, nfft,
+                                       precision)
+        bar = TC_BARS.get(precision, 1e-5)
+        assert float((y - want).abs().max()) <= bar * float(
+            want.abs().max())
+        with pytest.raises(TypeError):
+            mlsa.taylor_cascade(x.double(), c.double(), weights.double(),
+                                a.double(), P, 0, nfft, precision)
+    x, c, weights, a = _cascade_case(cuda, 1, 3, 1200, 199, 2, seed=13)
+    for precision in ("HIGH", "DEFAULT"):
+        with pytest.raises(ValueError, match="no tile"):
+            mlsa.taylor_cascade(x, c, weights, a, 1200, 0,
+                                lane_aligned_nfft(2 * 1200 + 200), precision)
+
+
+@pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
+def test_tc_cascade_makes_no_host_read(cuda, precision):
+    """After a geometry's first call (which copies its plans to the card
+    once), a call of either entry enqueues its work with no synchronising
+    read."""
+    cases = []
+    for P, M in ((80, 199), (240, 199)):
+        x, c, weights, a = _cascade_case(cuda, 2, 12, P, M, 20, seed=14)
+        cases.append((x, c, weights, a, P, 0,
+                      lane_aligned_nfft(2 * P + M + 1), precision))
+    for args in cases:
+        mlsa.taylor_cascade(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args in cases:
+            mlsa.taylor_cascade(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
+def test_tc_cascade_in_a_cuda_graph(cuda, precision):
+    """The S programmatic-dependent launches capture into a CUDA graph,
+    which replays the eager result bit for bit on new inputs."""
+    B, N, P, M, S = 4, 40, 80, 199, 20
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=15)
+    nfft = lane_aligned_nfft(2 * P + M + 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mlsa.taylor_cascade(x, c, weights, a, P, 0, nfft, precision)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y = mlsa.taylor_cascade(x, c, weights, a, P, 0, nfft, precision)
+    for seed in (16, 17):
+        x_new, c_new, _, _ = _cascade_case(cuda, B, N, P, M, S, seed=seed)
+        x.copy_(x_new)
+        c.copy_(c_new)
+        graph.replay()
+        want = mlsa.taylor_cascade(x_new, c_new, weights, a, P, 0, nfft,
+                                   precision)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+
+
+def test_vocoder_at_reduced_precision_takes_the_tc_kernel(cuda):
+    """MelCepstralVocoder(cascade="fused"): at HIGH the round trip runs
+    Newton 10 and the HIGH chunked entry 40, and nothing of the fp32
+    kernel; synthesize at DEFAULT runs the DEFAULT entry 20; at 48 kHz
+    (P=240, Taylor order 25) HIGH takes the unchunked entry 50."""
+    x = torch.randn(2, 3200, **_f32(cuda, 0))
+    voc = pt.MelCepstralVocoder(cascade="fused", cascade_precision="HIGH",
+                                device=cuda, dtype=torch.float32)
+    newton.launches = 0
+    before = _tc_counts()
+    y = voc.analysis_synthesis(x)
+    assert newton.launches == 10 and _tc_delta(before) == {
+        "launches_high": 40}
+    with pt.twins():
+        want = voc.analysis_synthesis(x)
+    assert float((y - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    low = pt.MelCepstralVocoder(cascade="fused", cascade_precision="DEFAULT",
+                                device=cuda, dtype=torch.float32)
+    mc = voc.analyze(x)
+    before = _tc_counts()
+    e = low.synthesize(x, mc)
+    assert _tc_delta(before) == {"launches_default": 20}
+    assert torch.isfinite(e).all()
+    voc48 = pt.MelCepstralVocoder(frame_length=1200, frame_period=240,
+                                  fft_length=2048, cep_order=24, alpha=0.55,
+                                  taylor_order=25, cascade="fused",
+                                  cascade_precision="HIGH", device=cuda,
+                                  dtype=torch.float32)
+    before = _tc_counts()
+    y48 = voc48.analysis_synthesis(torch.randn(2, 9600, **_f32(cuda, 7)))
+    assert _tc_delta(before) == {"launches_high_unchunked": 50}
+    assert torch.isfinite(y48).all()
 
 
 @pytest.mark.parametrize("B,T,N,length,lo,hi", [
