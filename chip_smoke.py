@@ -212,9 +212,12 @@ Phases (each prints one line; any failure exits non-zero):
                (chunked at the flagship's geometry, unchunked at P=240)
                against its twin in the same arithmetic, HIGH against the
                fp32 kernel, row 0 against float64 on the CPU; times,
-               device times, the twin's, the fp32 kernel's and the same
-               plan products as cuBLAS bf16 GEMMs, the bound at the bf16
-               tensor-core peak; then the slice's path: the flagship
+               device times (the unchunked entry's forward, inverse and
+               prologue kernels each, and their union), the twin's, the
+               fp32 kernel's and the same plan products as cuBLAS bf16
+               GEMMs, the bound at the bf16 tensor-core peak, the tiles
+               (the unchunked entry's rows x columns, ring stages, shared
+               memory, CTAs and waves); then the slice's path: the flagship
                MelCepstralVocoder(cascade="fused", cascade_precision=
                "HIGH") round trip (Newton 10, HIGH 40; SNR, against the
                fp32 kernel path), its synthesize at DEFAULT (20), the 48
@@ -4819,18 +4822,53 @@ TC_ROWS = {("chunked", "HIGH"): "mlsa_cascade_high",
            ("unchunked", "DEFAULT"): "mlsa_cascade_bf16_unchunked"}
 
 
+TC_UNCHUNKED_KERNELS = ("tc_fwd_kernel", "tc_inv_kernel", "tc_prep_kernel")
+"""The device functions of the tensor-core cascade's unchunked entry: a
+prologue a call, then the forward and the inverse product a stage."""
+
+
 def tc_ptxas(log: str) -> str:
     """ptxas' registers and spills of each instance of the tensor-core
-    stage kernel (arm, rows of its products)."""
+    kernels: the chunked entry's stage kernel (arm, rows of its products)
+    and the unchunked entry's forward and inverse kernels (arm)."""
     out, name = [], ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln
-        elif "tc_stage_kernel" in name and ("spill" in ln or "Used" in ln):
-            arm = "HIGH" if "ILb1E" in name else "DEFAULT"
+            continue
+        if not ("spill" in ln or "Used" in ln):
+            continue
+        arm = "HIGH" if "ILb1E" in name else "DEFAULT"
+        if "tc_stage_kernel" in name:
             rows = 32 if "Li2E" in name else 16
-            out.append(f"{arm}/{rows}: {ln.split(':', 1)[-1].strip()}")
+            out.append(f"chunked {arm}/{rows}: "
+                       f"{ln.split(':', 1)[-1].strip()}")
+        for kernel in TC_UNCHUNKED_KERNELS[:2]:
+            if kernel in name:
+                out.append(f"unchunked {arm} {kernel}: "
+                           f"{ln.split(':', 1)[-1].strip()}")
     return "; ".join(out) or "not in the build log"
+
+
+def tc_device_ms(torch, fn, names, calls: int = 20):
+    """Device time per call of ``fn``'s device functions whose names hold
+    one of ``names``, under torch.profiler: the union of their intervals
+    (the programmatic dependent launches overlap), and each name's own
+    summed time.  0.0 where the profiler recorded none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(n in e.name for n in names)]
+    each = {n: sum(e.device_time for e in events if n in e.name)
+            / 1e3 / calls for n in names}
+    return union_us(events) / 1e3 / calls, each
 
 
 def tc_counts(mlsa, newton) -> dict:
@@ -4879,6 +4917,29 @@ def tc_library_ms(torch, dev, rows: int, n_blk: int, P: int, K: int,
     return cuda_ms(torch, call, 5), "torch.mm(bf16, bf16, out_dtype=float32)"
 
 
+def tc_unchunked_tile_line(mlsa, B: int, N: int, P: int, r0: int,
+                           n_blk: int, K: int, precision: str,
+                           n_sm: int) -> str:
+    """The unchunked entry's tiles at (B, N) as its C side reports them:
+    each kernel's rows x columns, ring stages, shared memory, CTAs, CTAs
+    to an SM and waves."""
+    t = mlsa.tc_unchunked_tile(P, r0, n_blk, K, precision)
+    lay = t["layout"]
+    M = B * (N + n_blk - 1)
+    ctas = {"forward": -(-M // t["rows"]) * (lay.Nf // lay.bn_f),
+            "inverse": -(-M // (t["rows"] - 1)) * lay.n_ctile}
+    parts = []
+    for name, key in (("forward", "fwd"), ("inverse", "inv")):
+        per_sm = t[f"{key}_per_sm"]
+        parts.append(
+            f"{name} tile {t['rows']} x {t[f'{key}_cols']}, "
+            f"{t[f'{key}_stages']} ring stages, {t[f'{key}_smem']} bytes "
+            f"of shared memory, {ctas[name]} CTAs, {per_sm} to an SM: "
+            f"{ctas[name] / max(per_sm * n_sm, 1):.2f} waves")
+    return (f"{M} padded frame rows; " + "; ".join(parts)
+            + f" on {n_sm} SMs")
+
+
 def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
              S: int, precision: str, seed: int) -> tuple[dict, str]:
     """The tensor-core cascade through one entry at one arm, at (B, N, P,
@@ -4920,7 +4981,8 @@ def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
 
         def fp32():
             return mlsa.cascade_unchunked_cuda(xq, c, weights, a, P, 0, nfft)
-        plan = mlsa.tc_plans(nfft, M, P, 0, x.device)
+        plan = mlsa.tc_unchunked_plans(nfft, M, P, 0, precision,
+                                       x.device)[:7]
     kernel, fp32 = full_precision(kernel), full_precision(fp32)
     twin = full_precision(lambda: taylor_cascade_folded(
         x, c, weights, a, P, 0, nfft, precision))
@@ -4950,7 +5012,15 @@ def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
               f"twin's {d_cpu:.3e}")
     del y_k, y_t, y_f
     ms = cuda_ms(torch, kernel, 10)
-    dev_ms = kernel_device_ms(torch, kernel, "tc_stage_kernel")[0]
+    if chunked:
+        dev_ms = kernel_device_ms(torch, kernel, "tc_stage_kernel")[0]
+        functions = ""
+    else:
+        dev_ms, each = tc_device_ms(torch, kernel, TC_UNCHUNKED_KERNELS)
+        functions = (
+            f"; device functions ({1 + 2 * S} launches: a prologue, then "
+            f"forward and inverse a stage; their union is the device time): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in each.items()))
     twin_ms = cuda_ms(torch, twin, 3, warm=1)
     fp32_ms = cuda_ms(torch, fp32, 10)
     f_hi, f_lo, g_hi, g_lo, _, n_blk, K = plan
@@ -4960,24 +5030,28 @@ def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
     bound, by = tc_bound(B, N, P, Q, n_blk, K, S, passes, plan_bytes)
     lib_ms, lib_kind = tc_library_ms(torch, dev, B * N, n_blk, P, K, S,
                                      passes)
-    frames, rows, smem, per_sm = mlsa.tc_tile(P, Q, n_blk, K, precision)
-    blocks = -(-N // frames) * B
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if chunked:
+        frames, rows, smem, per_sm = mlsa.tc_tile(P, Q, n_blk, K, precision)
+        blocks = -(-N // frames) * B
+        tile = (f"tile {frames} frames, {rows} rows, {smem} bytes of shared "
+                f"memory; {blocks} blocks, {per_sm} to an SM: "
+                f"{blocks / (per_sm * n_sm):.2f} waves on {n_sm} SMs")
+    else:
+        tile = tc_unchunked_tile_line(mlsa, B, N, P, plan[4], n_blk, K,
+                                      precision, n_sm)
     flops = 2.0 * (n_blk * P * 2 * K + 4 * K * P) * B * N * S * passes
     summary = (f"{'chunked' if chunked else 'unchunked'} {precision} P={P} "
                f"M={M} (Q={Q}, K={K}, n_blk={n_blk}) S={S}: |kernel-twin| "
                f"{err / scale:.3e} of max|y| (bar "
                f"{TC_TWIN_BARS[precision]}), |kernel-fp32 kernel| "
                f"{err_f:.3e}, row 0 from float64: kernel {d_k:.3e}, CPU twin "
-               f"{d_cpu:.3e}; kernel {ms:.4f} ms per call ({S} launches), "
+               f"{d_cpu:.3e}; kernel {ms:.4f} ms per call ({S} stages), "
                f"device {dev_ms:.4f} ms, {flops / 1e9:.2f} GFLOP at "
                f"{flops / (dev_ms or ms) / 1e9:.1f} TFLOP/s; bound "
                f"{bound:.4f} ms ({by}, {ms / bound:.1f}x); fp32 kernel "
                f"{fp32_ms:.4f} ms; twin {twin_ms:.3f} ms; library "
-               f"({lib_kind}) {lib_ms:.4f} ms; tile {frames} frames, {rows} "
-               f"rows, {smem} bytes of shared memory; {blocks} blocks, "
-               f"{per_sm} to an SM: {blocks / (per_sm * n_sm):.2f} waves "
-               f"on {n_sm} SMs")
+               f"({lib_kind}) {lib_ms:.4f} ms; {tile}{functions}")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=twin_ms,
                 bound_ms=bound, bound_by=by, library_ms=lib_ms), summary
 
@@ -5231,10 +5305,12 @@ def main() -> int:
                 "spd_solve").spd_solve_smem_bytes(24),
             "spd_solve (n=64)": build.library(
                 "spd_solve").spd_solve_smem_bytes(64),
-            "mlsa_cascade_tc HIGH (P=80, Q=3)": mlsa.tc_tile(
+            "mlsa_cascade_tc chunked HIGH (P=80, Q=3)": mlsa.tc_tile(
                 80, 3, 3, 128, "HIGH"),
-            "mlsa_cascade_tc HIGH (P=240, Q=1)": mlsa.tc_tile(
-                240, 1, 3, 384, "HIGH")}
+            **{f"mlsa_cascade_tc unchunked {arm} (P=240)": {
+                k: v for k, v in mlsa.tc_unchunked_tile(
+                    240, 2, 3, 384, arm).items() if k != "layout"}
+               for arm in ("HIGH", "DEFAULT")}}
     print(f"[build] done in {time.time() - t0:.1f} s; shared memory per "
           f"block at the flagship shapes (static for newton, dynamic for "
           f"the others; the cascade: frames, threads and bytes of its "

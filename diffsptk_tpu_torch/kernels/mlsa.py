@@ -21,12 +21,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .mlsa_cascade import (
     PRECISIONS,
+    _coef_spectrum_tensors,
     cascade_plan,
     chunk_split,
     chunked_geometry,
@@ -52,8 +54,9 @@ launches_default = 0
 """The same at "DEFAULT"."""
 
 launches_high_unchunked = 0
-"""Launches of the tensor-core kernel at "HIGH" through its unchunked
-entry so far, one per stage."""
+"""Stages run by the tensor-core kernel at "HIGH" through its unchunked
+entry so far, one per stage (each stage is two launches, the forward and
+the inverse product, after one prologue launch a call)."""
 
 launches_default_unchunked = 0
 """The same at "DEFAULT"."""
@@ -208,8 +211,8 @@ def tc_plans(nfft: int, m: int, p: int, advance: int, device):
 
 
 @functools.cache
-def _tc_entry(name: str):
-    fn = getattr(build.library("mlsa_cascade_tc"), name)
+def _tc_entry(name: str, defines=()):
+    fn = getattr(build.library("mlsa_cascade_tc", defines), name)
     n_int = 8 if "unchunked" in name else 9
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * n_int + [
         ctypes.c_void_p]
@@ -231,11 +234,197 @@ def tc_tile(P: int, Q: int, n_blk: int, K: int, precision: str):
                                     per_sm.value)
 
 
+# The unchunked entry's tiles (csrc/mlsa_cascade_tc.cu, namespace wg):
+# rows of a tile, K of a ring stage, and at each arm the columns of the
+# forward and the inverse tile.  The C layout is held equal to
+# tc_unchunked_layout's at a geometry's first call.
+TC_TILE_ROWS = 128
+TC_BK = 64
+TC_TILE_COLUMNS = {"HIGH": (128, 128), "DEFAULT": (192, 240)}
+TC_PLAN_BUDGET = 24 << 20
+"""Bytes of plans (both products, both halves at HIGH) that the
+unchunked entry takes at most: its row tiles re-read them from L2."""
+
+
+class TcLayout(NamedTuple):
+    """The unchunked entry's layout of a geometry at one arm."""
+
+    P8: int       # a frame's width in the padded state: P rounded up to 8
+    kf: int       # the forward contraction, n_blk P8
+    Kf: int       # and rounded up to TC_BK
+    Kp: int       # bins rounded up to 32 (Y and the inverse plan: 2 Kp)
+    Nf: int       # forward plan rows: 2 Kp rounded up to the tile
+    bn_f: int     # forward tile columns
+    bn_i: int     # inverse tile columns
+    w: int        # frame columns p a tile of the inverse (bn_i / 2)
+    n_ctile: int  # column tiles of the inverse
+    Ni: int       # inverse plan rows, n_ctile bn_i
+
+
+def tc_unchunked_layout(P: int, r0: int, n_blk: int, K: int,
+                        precision: str):
+    """The unchunked tensor-core entry's layout at frame period P, r0,
+    n_blk and K bins: a :class:`TcLayout`, or None where the entry refuses
+    the geometry (r0 outside 1 .. n_blk - 1, or plans past
+    ``TC_PLAN_BUDGET``)."""
+    bn_f, bn_i = TC_TILE_COLUMNS[precision]
+    P8 = _round_up(P, 8)
+    Kp = _round_up(K, 32)
+    w = bn_i // 2
+    n_ctile = -(-P // w)
+    lay = TcLayout(P8, n_blk * P8, _round_up(n_blk * P8, TC_BK), Kp,
+                   _round_up(2 * Kp, bn_f), bn_f, bn_i, w, n_ctile,
+                   n_ctile * bn_i)
+    halves = 2 if precision == "HIGH" else 1
+    plans = (lay.Nf * lay.Kf + lay.Ni * 2 * Kp) * 2 * halves
+    if not 1 <= r0 <= n_blk - 1 or plans > TC_PLAN_BUDGET:
+        return None
+    return lay
+
+
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """A (R, Kc) K-major operand (R a multiple of 8, Kc of TC_BK) as the
+    kernel's ring stages hold it: (Kc / 64, R, 64), the 16-byte chunk c of
+    row n at chunk c ^ (n % 8) (wgmma's 128-byte swizzle)."""
+    R, Kc = t.shape
+    t4 = t.reshape(R, Kc // TC_BK, 8, 8).permute(1, 0, 2, 3)
+    src = torch.arange(8)[None, :] ^ (torch.arange(R)[:, None] % 8)
+    return t4.gather(2, src[None, :, :, None].expand(t4.shape)).reshape(
+        Kc // TC_BK, R, TC_BK)
+
+
+def unswizzle128(img: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`swizzle128`: (Kc / 64, R, 64) -> (R, Kc)."""
+    KB, R, _ = img.shape
+    t4 = img.reshape(KB, R, 8, 8)
+    src = torch.arange(8)[None, :] ^ (torch.arange(R)[:, None] % 8)
+    t4 = t4.gather(2, src[None, :, :, None].expand(t4.shape))
+    return t4.permute(1, 0, 2, 3).reshape(R, KB * TC_BK)
+
+
+def forward_bins(lay: TcLayout) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each of the forward plan's Nf rows (the product's columns), the
+    bin and the part (0 re, 1 im) it computes: column 32 g + 8 jj + 2 t + e
+    holds part e of bin 16 g + 4 t + jj, so that the thread holding
+    columns 8 j + 2 t + e of a wgmma tile (t = lane % 4) holds four
+    consecutive bins."""
+    c = torch.arange(lay.Nf)
+    g, cc = c // 32, c % 32
+    return 16 * g + 4 * ((cc % 8) // 2) + cc // 8, cc % 2
+
+
+def inverse_columns(lay: TcLayout, P: int) -> torch.Tensor:
+    """For each of the inverse plan's Ni rows (the product's columns), the
+    column of ``cascade_plan``'s Ginv it holds, or -1 (zero): tile j's
+    columns in groups of 8, lo (1 - lam) of p, then hi lam of the same p
+    (Ginv column P + p), for p = j w + 8 g .. j w + 8 g + 7."""
+    c = torch.arange(lay.Ni)
+    j, cc = c // lay.bn_i, c % lay.bn_i
+    q, e = cc // 8, cc % 8
+    p = j * lay.w + (q // 2) * 8 + e
+    return torch.where(p < P, p + (q % 2) * P, -1)
+
+
+@functools.lru_cache(maxsize=16)
+def tc_unchunked_plans(nfft: int, m: int, p: int, advance: int,
+                       precision: str, device):
+    """The unchunked tensor-core entry's plans for a geometry at one arm,
+    made once per device: (f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, layout),
+    or None where the entry refuses the geometry.
+
+    The forward plan, transposed (Nf, Kf): row c holds the part of the
+    bin that :func:`forward_bins` gives it, over the context position
+    r P8 + q (``cascade_plan``'s Ffwd[r, q], zero for q >= P).  The
+    inverse plan, transposed (Ni, 2 Kp): row c holds the Ginv column of
+    :func:`inverse_columns`, over Y's columns (bin k's re at 2k, its im at
+    2k + 1).  Each is rounded to float32, split exactly into bf16 hi and lo
+    (``mlsa_cascade.split_hi_lo``) and laid out as :func:`swizzle128`."""
+    Ffwd, Ginv_re, Ginv_im, r0, n_blk = cascade_plan(nfft, m, p, advance)
+    K = nfft // 2 + 1
+    lay = tc_unchunked_layout(p, r0, n_blk, K, precision)
+    if lay is None:
+        return None
+    f64 = torch.float64
+    fwd = torch.as_tensor(Ffwd, dtype=f64)                 # (n_blk, P, 2K)
+    f = torch.zeros(lay.Nf, n_blk, lay.P8, dtype=f64)
+    k, e = forward_bins(lay)
+    live = k < K
+    f[live, :, :p] = fwd[..., (e * K + k)[live]].permute(2, 0, 1)
+    f = torch.cat([f.reshape(lay.Nf, lay.kf),
+                   torch.zeros(lay.Nf, lay.Kf - lay.kf, dtype=f64)], 1)
+    src = inverse_columns(lay, p)
+    live = src >= 0
+    g = torch.zeros(lay.Ni, 2 * lay.Kp, dtype=f64)
+    g[live, 0:2 * K:2] = torch.as_tensor(Ginv_re).T[src[live]]
+    g[live, 1:2 * K:2] = torch.as_tensor(Ginv_im).T[src[live]]
+    out = []
+    for plan in (f, g):
+        out += [swizzle128(h.to(torch.bfloat16)).to(device)
+                for h in split_hi_lo(plan.float())]
+    return (*out, r0, n_blk, K, lay)
+
+
+@functools.cache
+def _tc_unchunked_c(P: int, r0: int, n_blk: int, K: int, precision: str):
+    """The C side's layout of a geometry (``mlsa_cascade_tc_unchunked_
+    layout``): (the TcLayout fields, shared memory bytes of the forward
+    and the inverse kernel, ring stages of each), or None where it
+    refuses the geometry."""
+    fn = build.library("mlsa_cascade_tc").mlsa_cascade_tc_unchunked_layout
+    fn.restype = ctypes.c_longlong
+    out = (ctypes.c_int * 14)()
+    nbytes = fn(P, r0, n_blk, K, int(precision == "HIGH"), out)
+    return None if nbytes < 0 else tuple(out)
+
+
+@functools.cache
+def tc_unchunked_tile(P: int, r0: int, n_blk: int, K: int, precision: str):
+    """The unchunked entry's tiles at one arm, as its C side reports them:
+    a dict of rows a tile, the forward and inverse tiles' columns, ring
+    stages, shared memory bytes and blocks that fit on one SM, or None
+    where it refuses the geometry."""
+    got = _tc_unchunked_c(P, r0, n_blk, K, precision)
+    if got is None:
+        return None
+    fn = build.library(
+        "mlsa_cascade_tc").mlsa_cascade_tc_unchunked_occupancy
+    occ = (ctypes.c_int * 2)()
+    fn(int(precision == "HIGH"), occ)
+    lay = TcLayout(*got[:10])
+    return dict(rows=TC_TILE_ROWS, fwd_cols=lay.bn_f, inv_cols=lay.bn_i,
+                fwd_stages=got[12], inv_stages=got[13], fwd_smem=got[10],
+                inv_smem=got[11], fwd_per_sm=occ[0], inv_per_sm=occ[1],
+                layout=lay)
+
+
+@functools.lru_cache(maxsize=16)
+def _coef_plan_cat(nfft: int, n_taps: int, device):
+    """``coef_spectrum``'s cos and -sin plans side by side, (n_taps, 2K)
+    float32 on ``device``."""
+    return torch.cat(_coef_spectrum_tensors(nfft, n_taps, torch.float32,
+                                            device), -1)
+
+
+def coef_spectrum_cat(c: torch.Tensor, nfft: int) -> torch.Tensor:
+    """``coef_spectrum``'s re and im in one (..., 2K) array (re at k, im
+    at K + k), by one matmul: what the unchunked tensor-core entry reads.
+    The same sums as coef_spectrum's two matmuls, column for column."""
+    return torch.matmul(c, _coef_plan_cat(nfft, c.shape[-1], c.device))
+
+
+@functools.cache
+def _tc_workspace_fn():
+    fn = build.library(
+        "mlsa_cascade_tc").mlsa_cascade_tc_unchunked_workspace
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 def _run_tc(x, c, weights, a, P: int, advance: int, nfft: int,
-            precision: str, chunked: bool):
+            precision: str, chunked: bool, defines=()):
     """Check the arguments and enqueue the S stages of the tensor-core
-    kernel through its chunked (transform length ``nfft`` = nfft_c) or
-    unchunked entry; returns (y, S)."""
+    kernel (built with ``defines``) through its chunked (transform length
+    ``nfft`` = nfft_c) or unchunked entry; returns (y, S)."""
     if precision not in ("HIGH", "DEFAULT"):
         raise ValueError('the tensor-core cascade takes "HIGH" or "DEFAULT"')
     (B, N, M, S), w, a = _checked(x, c, weights, a, P)
@@ -246,28 +435,47 @@ def _run_tc(x, c, weights, a, P: int, advance: int, nfft: int,
             cch, Q = chunk_split(c, P)
             cre, cim = coef_spectrum(cch, nfft)           # (B, N, Q, K)
             plan = tc_plans(nfft, P - 1, P, advance, x.device)
+            f_hi, f_lo, g_hi, g_lo, r0, n_blk, K = plan
+            if tc_tile(P, Q, n_blk, K, precision) is None:
+                raise ValueError(
+                    f"the tensor-core cascade has no tile for P={P}, Q={Q}, "
+                    f"K={K}")
+            buf = x.new_empty((2,) + x.shape)
+            ints = [B, N, P, Q, r0, n_blk, K]
         else:
-            Q = 1
-            cre, cim = coef_spectrum(c, nfft)             # (B, N, K)
-            plan = tc_plans(nfft, M, P, advance, x.device)
-        f_hi, f_lo, g_hi, g_lo, r0, n_blk, K = plan
-        if tc_tile(P, Q, n_blk, K, precision) is None:
-            raise ValueError(
-                f"the tensor-core cascade has no tile for P={P}, Q={Q}, "
-                f"K={K}")
+            plan = tc_unchunked_plans(nfft, M, P, advance, precision,
+                                      x.device)
+            if plan is None:
+                raise ValueError(
+                    f"the tensor-core cascade has no tile for P={P}, M={M}, "
+                    f"nfft={nfft}: its plans pass {TC_PLAN_BUDGET >> 20} MB "
+                    "or its frames' context starts at or after the frame")
+            f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = plan
+            if _tc_unchunked_c(P, r0, n_blk, K, precision)[:10] != lay:
+                raise RuntimeError(
+                    "mlsa_cascade_tc.cu's unchunked layout differs from "
+                    "tc_unchunked_layout's")
+            cre = coef_spectrum_cat(c, nfft)              # (B, N, 2K)
+            cim = cre[..., K:]
+            nbytes = _tc_workspace_fn()(B, N, P, r0, n_blk, K,
+                                        int(precision == "HIGH"))
+            if nbytes < 0:
+                raise ValueError(
+                    f"the tensor-core cascade has no tile for B={B}, N={N} "
+                    f"at P={P}: its indices pass 2^31")
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            ints = [B, N, P, r0, n_blk, K]
         x = x.contiguous()
-        cre, cim = cre.contiguous(), cim.contiguous()
-        buf = x.new_empty((2,) + x.shape)
+        if chunked:
+            cre, cim = cre.contiguous(), cim.contiguous()
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [t.data_ptr() for t in (x, cre, cim, f_hi, f_lo, g_hi, g_lo,
                                        w, a, buf, y)]
-        ints = ([B, N, P, Q, r0, n_blk, K] if chunked
-                else [B, N, P, r0, n_blk, K])
         entry = ("mlsa_cascade_tc_chunked_f32" if chunked
                  else "mlsa_cascade_tc_unchunked_f32")
-        err = _tc_entry(entry)(*ptrs, *ints, S, int(precision == "HIGH"),
-                               stream)
+        err = _tc_entry(entry, tuple(defines))(
+            *ptrs, *ints, S, int(precision == "HIGH"), stream)
     build.check(err, "mlsa_cascade_tc stage")
     return y, S
 
@@ -293,17 +501,23 @@ def cascade_chunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
 
 def cascade_unchunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
                               weights: torch.Tensor, a: torch.Tensor, P: int,
-                              advance: int, nfft: int,
-                              precision: str) -> torch.Tensor:
+                              advance: int, nfft: int, precision: str,
+                              _defines=()) -> torch.Tensor:
     """The cascade on the card's tensor cores at "HIGH" or "DEFAULT", at
     every other geometry (the B3 row), transform length ``nfft``
     (>= 2P+M+1).  x (B, N, P) float32, c (B, N, M+1) float32 ->
-    y (B, N, P).  Raises on what the kernel does not take."""
+    y (B, N, P).  Raises on what the kernel does not take.  ``_defines``
+    builds the kernel with those macros set: the variants of
+    tools/torch_tc_cascade_ab.py (MLSA_TC_NO_PDL launches without
+    programmatic dependence; MLSA_TC_ABLATE_EPILOGUE and
+    MLSA_TC_ABLATE_MMA leave out the epilogues or the products, compute
+    wrong values and only time what remains)."""
     global launches_high_unchunked, launches_default_unchunked
     M = c.shape[-1] - 1
     if nfft < 2 * P + M + 1:
         raise ValueError(f"nfft must be at least 2P+M+1 = {2 * P + M + 1}")
-    y, S = _run_tc(x, c, weights, a, P, advance, nfft, precision, False)
+    y, S = _run_tc(x, c, weights, a, P, advance, nfft, precision, False,
+                   _defines)
     if precision == "HIGH":
         launches_high_unchunked += S
     else:

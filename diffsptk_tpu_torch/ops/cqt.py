@@ -192,7 +192,9 @@ class InverseConstantQTransform(nn.Module):
                  filter_scale: float = 1, norm: float = 1,
                  sparsity: float = 1e-2, window: str = "hann",
                  scale: bool = True, res_type: str | None = "kaiser_best",
-                 dtype=None, device=None) -> None:
+                 dtype=None, device=None, **kwargs) -> None:
+        # Extra keywords (the forward transform's resampler options) are
+        # accepted and ignored, as the JAX class does.
         super().__init__()
         _check_period(frame_period)
         K, B = n_bin, n_bin_per_octave

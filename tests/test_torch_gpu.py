@@ -618,11 +618,16 @@ def test_tc_cascade_chunked_matches_twin(cuda, precision, B, N, P, M, S,
 @pytest.mark.parametrize("B,N,P,M,S,advance", [(4, 50, 240, 199, 20, 0),
                                                (2, 13, 16, 39, 4, 0),
                                                (3, 9, 18, 50, 3, 3),
-                                               (2, 40, 80, 79, 5, 0)])
+                                               (2, 40, 80, 79, 5, 0),
+                                               (1, 300, 240, 199, 4, 0),
+                                               (3, 61, 80, 79, 3, 1)])
 def test_tc_cascade_unchunked_matches_twin(cuda, precision, B, N, P, M, S,
                                            advance):
     """The unchunked entry at [chain48]'s P=240, a padded half spectrum
-    (nfft 128, K = 65) and P not a multiple of 8."""
+    (nfft 128, K = 65), P not a multiple of 8, one batch row whose 302
+    padded frames are no multiple of the 128-row tile (nor of the inverse
+    tiles' 127), and row tiles that span two batch rows (64 padded frames
+    a row at P = 80, advance 1: n_blk = 4)."""
     x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=12)
     nfft = (lane_aligned_nfft(2 * P + M + 1) if P >= 80
             else 1 << int(np.ceil(np.log2(2 * P + M + 1))))
@@ -690,11 +695,13 @@ def test_tc_cascade_makes_no_host_read(cuda, precision):
         torch.cuda.set_sync_debug_mode(0)
 
 
+@pytest.mark.parametrize("P,M", [(80, 199), (240, 199)])
 @pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
-def test_tc_cascade_in_a_cuda_graph(cuda, precision):
-    """The S programmatic-dependent launches capture into a CUDA graph,
-    which replays the eager result bit for bit on new inputs."""
-    B, N, P, M, S = 4, 40, 80, 199, 20
+def test_tc_cascade_in_a_cuda_graph(cuda, precision, P, M):
+    """The programmatic-dependent launches of either entry (the chunked at
+    P=80, the unchunked at P=240) capture into a CUDA graph, which replays
+    the eager result bit for bit on new inputs."""
+    B, N, S = 4, 40, 20
     x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=15)
     nfft = lane_aligned_nfft(2 * P + M + 1)
     side = torch.cuda.Stream()

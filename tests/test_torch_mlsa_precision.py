@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import diffsptk_tpu_torch as pt
 from diffsptk_tpu.kernels.mlsa_cascade import (
@@ -214,28 +215,183 @@ def _tc_emulated(x, c, weights, a, P, advance, nfft, precision, chunked):
     return y
 
 
+def _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft, precision):
+    """The unchunked tensor-core entry (csrc/mlsa_cascade_tc.cu,
+    tc_fwd_kernel / tc_inv_kernel) in torch, from the plans as
+    ``mlsa.tc_unchunked_plans`` lays them out for it (unswizzled): the
+    padded state (r0 zero frames before each batch row, n_blk - 1 - r0
+    after it, frames P8 wide), its context rows (the view at row stride
+    P8), the forward tiles of 128 rows with the bins' re and im side by
+    side (``mlsa.forward_bins``' order) and Y split in their epilogue,
+    the inverse tiles of 127 frames and a halo row with the lo / hi
+    column groups of 8, and the next state written split by the inverse
+    epilogue."""
+    B, T = x.shape
+    N, M = c.shape[-2], c.shape[-1] - 1
+    f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = mlsa.tc_unchunked_plans(
+        nfft, M, P, advance, precision, "cpu")
+    Fh, Fl = (mlsa.unswizzle128(t).float() for t in (f_hi, f_lo))
+    Gh, Gl = (mlsa.unswizzle128(t).float() for t in (g_hi, g_lo))
+    high = precision == "HIGH"
+    rows = mlsa.TC_TILE_ROWS
+    Np = N + n_blk - 1
+    Mr = B * Np
+    frames = Mr + n_blk
+    cre, cim = coef_spectrum(c, nfft)                     # (B, N, K)
+    f32 = dict(dtype=torch.float32)   # whatever torch's default dtype
+
+    def split(v):
+        hi = bf16_round(v)
+        return hi, (bf16_round(v - hi) if high else torch.zeros_like(v))
+
+    def gemm(ah, al, bh, bl):
+        out = ah @ bh.T
+        return out + ah @ bl.T + al @ bh.T if high else out
+
+    def tile(t, r0_, n):
+        """Rows r0_ .. r0_ + n of t, zero past its end (cp.async's fill)."""
+        part = t[r0_:r0_ + n]
+        return torch.cat([part, part.new_zeros(n - part.shape[0],
+                                               part.shape[1])])
+
+    at = (torch.arange(B)[:, None] * Np + r0
+          + torch.arange(N)[None, :]).reshape(-1)        # frame m of row b
+    st = torch.zeros(frames, lay.P8, **f32)
+    st[at, :P] = x.reshape(B * N, P)
+    sh, sl = split(st)
+    row = torch.arange(Mr)
+    b_of, m_of = row // Np, row % Np
+    nc = m_of.clamp(max=N - 1)
+    live = (m_of <= N)[:, None]
+    pl = torch.arange(lay.w)
+    col = 16 * (pl // 8) + pl % 8                         # lo of p; hi +8
+    y = a[0] * x.reshape(B, N, P)
+    for s in range(1, a.shape[0]):
+        ctx = [F.pad(t.reshape(-1).unfold(0, lay.kf, lay.P8)[:Mr],
+                     (0, lay.Kf - lay.kf)) for t in (sh, sl)]
+        X = torch.cat([gemm(tile(ctx[0], t0, rows), tile(ctx[1], t0, rows),
+                            Fh, Fl) for t0 in range(0, Mr, rows)])[:Mr]
+        xr = torch.zeros(Mr, K, **f32)
+        xi = torch.zeros(Mr, K, **f32)
+        kb, part = mlsa.forward_bins(lay)
+        for e, part_x in ((0, xr), (1, xi)):
+            sel = (part == e) & (kb < K)
+            part_x[:, kb[sel]] = X[:, sel]
+        cr, ci = cre[b_of, nc], cim[b_of, nc]
+        Y = torch.zeros(Mr, 2 * lay.Kp, **f32)
+        Y[:, 0:2 * K:2] = torch.where(live, xr * cr - xi * ci, 0.0)
+        Y[:, 1:2 * K:2] = torch.where(live, xr * ci + xi * cr, 0.0)
+        yh, yl = split(Y)
+        out = torch.zeros(B, N, P, **f32)
+        nxt = torch.zeros(frames, lay.P8, **f32)
+        for t0 in range(0, Mr, rows - 1):
+            V = gemm(tile(yh, t0, rows), tile(yl, t0, rows), Gh, Gl)
+            r = torch.arange(rows - 1)
+            keep = (t0 + r < Mr)
+            rr = r[keep]
+            ri = t0 + rr
+            ok = m_of[ri] < N
+            rr, ri = rr[ok], ri[ok]
+            for j in range(lay.n_ctile):
+                p = j * lay.w + pl
+                pk = p < P
+                cj = j * lay.bn_i + col[pk]
+                val = (V[rr][:, cj] + V[rr + 1][:, cj + 8]) * weights[s]
+                out[b_of[ri][:, None], m_of[ri][:, None], p[pk]] = val
+                nxt[(b_of[ri] * Np + r0 + m_of[ri])[:, None], p[pk]] = val
+        y = y + a[s] * out
+        sh, sl = split(nxt)
+    return y.reshape(B, T)
+
+
 @pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
 @pytest.mark.parametrize("chunked,B,N,P,M,S,advance", [
     (True, 2, 7, 16, 39, 4, 0), (True, 2, 6, 12, 50, 3, 2),
     (False, 1, 5, 16, 30, 3, 5), (False, 2, 4, 40, 79, 3, 0)])
 def test_kernel_plans_and_indexing_reproduce_the_twin(
         precision, chunked, B, N, P, M, S, advance):
-    """The layout the kernel reads (tc_plans in fragment order, padded
-    to its tiles; its context rows and its edge frame) reproduces the twin
-    in the same arithmetic: within 1e-5 of max|y| at HIGH; at DEFAULT,
-    where a value one fp32 step apart may round to another bf16, within
-    3e-3 (readings 1e-4 to 1.3e-3)."""
+    """The layout each entry reads reproduces the twin in the same
+    arithmetic: the chunked entry's (tc_plans in fragment order, padded to
+    its tiles; its context rows and its edge frame), the unchunked entry's
+    (``_tc_unchunked_emulated``); within 1e-5 of max|y| at HIGH; at
+    DEFAULT, where a value one fp32 step apart may round to another bf16,
+    within 3e-3 (readings 1e-4 to 1.3e-3)."""
     x, c, weights, a = _t(*_case(B, N, P, M, S))
     if chunked:
         nfft = lane_aligned_nfft(3 * P)
         want = taylor_cascade_chunked(x, c, weights, a, P, advance, nfft,
                                       precision)
+        got = _tc_emulated(x, c, weights, a, P, advance, nfft, precision,
+                           chunked)
     else:
         nfft = lane_aligned_nfft(2 * P + M + 1)
         want = taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft,
                                         precision)
-    got = _tc_emulated(x, c, weights, a, P, advance, nfft, precision, chunked)
+        got = _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft,
+                                     precision)
     assert _rel(got, want) <= (1e-5 if precision == "HIGH" else 3e-3)
+
+
+@pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
+@pytest.mark.parametrize("B,N,P,M,S,advance", [(4, 50, 240, 199, 20, 0),
+                                               (2, 13, 16, 39, 4, 0),
+                                               (3, 9, 18, 50, 3, 3),
+                                               (2, 40, 80, 79, 5, 0)])
+def test_unchunked_layout_reproduces_the_twin(precision, B, N, P, M, S,
+                                              advance):
+    """The unchunked entry's layout and tile walk at the four geometries
+    of its card test (tests/test_torch_gpu.py:
+    test_tc_cascade_unchunked_matches_twin, the same transform lengths):
+    [chain48]'s P = 240 (two row tiles, the halo across them), K = 65 (the
+    bins padded to 96), P = 18 (frames padded to 24) with advance > 0, and
+    P = 80; against the twin within the card's bars (HIGH 2e-5, DEFAULT
+    3e-3 of max|y|)."""
+    x, c, weights, a = _t(*_case(B, N, P, M, S))
+    nfft = (lane_aligned_nfft(2 * P + M + 1) if P >= 80
+            else 1 << int(np.ceil(np.log2(2 * P + M + 1))))
+    want = taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft,
+                                    precision)
+    got = _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft,
+                                 precision)
+    assert _rel(got, want) <= (2e-5 if precision == "HIGH" else 3e-3)
+
+
+def test_unchunked_plans_hold_the_folded_plans():
+    """The unchunked plans, unswizzled, hold split_plans' halves: the
+    forward's rows Ffwd's re and im columns of the bins of forward_bins
+    (each bin's two parts once) at context positions r P8 + q, the
+    inverse's rows Ginv's columns of inverse_columns, zeros elsewhere;
+    swizzle128 is a permutation of each row's 16-byte chunks."""
+    nfft, m, p, advance = 128, 50, 18, 3
+    f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = mlsa.tc_unchunked_plans(
+        nfft, m, p, advance, "HIGH", "cpu")
+    fwd, (gre_h, gre_l), (gim_h, gim_l), r0_, n_blk_ = split_plans(
+        nfft, m, p, advance, "cpu")
+    assert (r0, n_blk) == (r0_, n_blk_) and lay.P8 == 24 and lay.Kp == 96
+    for img, half in ((f_hi, 0), (f_lo, 1)):
+        Ft = mlsa.unswizzle128(img).float()
+        grid = Ft[:, :lay.kf].reshape(lay.Nf, n_blk, lay.P8)
+        kb, part = mlsa.forward_bins(lay)
+        live = kb < K
+        for r in range(n_blk):
+            want = fwd[r][half]                              # (P, 2K)
+            assert torch.equal(grid[live, r, :p],
+                               want[:, (part * K + kb)[live]].T)
+        assert not grid[:, :, p:].any() and not Ft[~live].any()
+        assert not Ft[:, lay.kf:].any()
+    held = sorted((part * K + kb)[live].tolist())
+    assert held == list(range(2 * K))
+    src = mlsa.inverse_columns(lay, p)
+    for img, (re, im) in ((g_hi, (gre_h, gim_h)), (g_lo, (gre_l, gim_l))):
+        Gt = mlsa.unswizzle128(img).float()
+        live = src >= 0
+        assert torch.equal(Gt[live, 0:2 * K:2], re.T[src[live]])
+        assert torch.equal(Gt[live, 1:2 * K:2], im.T[src[live]])
+        assert not Gt[~live].any() and not Gt[:, 2 * K:].any()
+    t = torch.arange(16 * 128, dtype=torch.float32).reshape(16, 128)
+    img = mlsa.swizzle128(t)
+    assert torch.equal(mlsa.unswizzle128(img), t)
+    assert torch.equal(img[0, 3, 8:16], t[3, 16:24])   # chunk 2 of row 3
 
 
 @pytest.mark.parametrize("P,M,advance", [(16, 39, 0), (16, 30, 5),
