@@ -212,12 +212,12 @@ Phases (each prints one line; any failure exits non-zero):
                (chunked at the flagship's geometry, unchunked at P=240)
                against its twin in the same arithmetic, HIGH against the
                fp32 kernel, row 0 against float64 on the CPU; times,
-               device times (the unchunked entry's forward, inverse and
-               prologue kernels each, and their union), the twin's, the
-               fp32 kernel's and the same plan products as cuBLAS bf16
-               GEMMs, the bound at the bf16 tensor-core peak, the tiles
-               (the unchunked entry's rows x columns, ring stages, shared
-               memory, CTAs and waves); then the slice's path: the flagship
+               device times (each entry's forward, inverse and prologue
+               kernels each, and their union), the twin's, the fp32
+               kernel's and the same plan products as cuBLAS bf16 GEMMs,
+               the bound at the bf16 tensor-core peak, the tiles (each
+               entry's rows x columns, ring stages, shared memory, CTAs
+               and waves); then the slice's path: the flagship
                MelCepstralVocoder(cascade="fused", cascade_precision=
                "HIGH") round trip (Newton 10, HIGH 40; SNR, against the
                fp32 kernel path), its synthesize at DEFAULT (20), the 48
@@ -4822,15 +4822,15 @@ TC_ROWS = {("chunked", "HIGH"): "mlsa_cascade_high",
            ("unchunked", "DEFAULT"): "mlsa_cascade_bf16_unchunked"}
 
 
-TC_UNCHUNKED_KERNELS = ("tc_fwd_kernel", "tc_inv_kernel", "tc_prep_kernel")
-"""The device functions of the tensor-core cascade's unchunked entry: a
-prologue a call, then the forward and the inverse product a stage."""
+TC_KERNELS = ("tc_fwd_kernel", "tc_inv_kernel", "tc_prep_kernel")
+"""The device functions of either tensor-core cascade entry: a prologue a
+call, then the forward and the inverse product a stage."""
 
 
 def tc_ptxas(log: str) -> str:
     """ptxas' registers and spills of each instance of the tensor-core
-    kernels: the chunked entry's stage kernel (arm, rows of its products)
-    and the unchunked entry's forward and inverse kernels (arm)."""
+    kernels: the forward and inverse kernel of each entry (chunked or
+    unchunked) and arm."""
     out, name = [], ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -4838,15 +4838,14 @@ def tc_ptxas(log: str) -> str:
             continue
         if not ("spill" in ln or "Used" in ln):
             continue
-        arm = "HIGH" if "ILb1E" in name else "DEFAULT"
-        if "tc_stage_kernel" in name:
-            rows = 32 if "Li2E" in name else 16
-            out.append(f"chunked {arm}/{rows}: "
+        for kernel in TC_KERNELS[:2]:
+            if kernel not in name:
+                continue
+            args = name.split(kernel, 1)[1]
+            arm = "HIGH" if args.startswith("ILb1E") else "DEFAULT"
+            entry = "chunked" if "ELb1EE" in args[:12] else "unchunked"
+            out.append(f"{entry} {arm} {kernel}: "
                        f"{ln.split(':', 1)[-1].strip()}")
-        for kernel in TC_UNCHUNKED_KERNELS[:2]:
-            if kernel in name:
-                out.append(f"unchunked {arm} {kernel}: "
-                           f"{ln.split(':', 1)[-1].strip()}")
     return "; ".join(out) or "not in the build log"
 
 
@@ -4917,16 +4916,15 @@ def tc_library_ms(torch, dev, rows: int, n_blk: int, P: int, K: int,
     return cuda_ms(torch, call, 5), "torch.mm(bf16, bf16, out_dtype=float32)"
 
 
-def tc_unchunked_tile_line(mlsa, B: int, N: int, P: int, r0: int,
-                           n_blk: int, K: int, precision: str,
-                           n_sm: int) -> str:
-    """The unchunked entry's tiles at (B, N) as its C side reports them:
-    each kernel's rows x columns, ring stages, shared memory, CTAs, CTAs
-    to an SM and waves."""
-    t = mlsa.tc_unchunked_tile(P, r0, n_blk, K, precision)
+def tc_tile_line(mlsa, B: int, N: int, P: int, Q: int, r0: int, n_blk: int,
+                 K: int, precision: str, chunked: bool, n_sm: int) -> str:
+    """An entry's tiles at (B, N) as its C side reports them: each
+    kernel's rows x columns, ring stages, shared memory, CTAs, CTAs to an
+    SM and waves."""
+    t = mlsa.tc_tile(P, Q, r0, n_blk, K, precision, chunked)
     lay = t["layout"]
-    M = B * (N + n_blk - 1)
-    ctas = {"forward": -(-M // t["rows"]) * (lay.Nf // lay.bn_f),
+    M = B * (lay.pre + N + lay.after)
+    ctas = {"forward": -(-M // t["fwd_step"]) * (lay.Nf // lay.bn_f),
             "inverse": -(-M // (t["rows"] - 1)) * lay.n_ctile}
     parts = []
     for name, key in (("forward", "fwd"), ("inverse", "inv")):
@@ -4936,8 +4934,8 @@ def tc_unchunked_tile_line(mlsa, B: int, N: int, P: int, r0: int,
             f"{t[f'{key}_stages']} ring stages, {t[f'{key}_smem']} bytes "
             f"of shared memory, {ctas[name]} CTAs, {per_sm} to an SM: "
             f"{ctas[name] / max(per_sm * n_sm, 1):.2f} waves")
-    return (f"{M} padded frame rows; " + "; ".join(parts)
-            + f" on {n_sm} SMs")
+    return (f"{M} padded frame rows (forward row tiles step by "
+            f"{t['fwd_step']}); " + "; ".join(parts) + f" on {n_sm} SMs")
 
 
 def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
@@ -4971,7 +4969,8 @@ def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
 
         def fp32():
             return mlsa.cascade_chunked_cuda(xq, c, weights, a, P, 0, nf)
-        plan = mlsa.tc_plans(nf, P - 1, P, 0, x.device)
+        plan = mlsa.tc_plans(nf, P - 1, P, 0, precision, x.device, Q,
+                             True)[:7]
     else:
         Q = 1
 
@@ -4981,8 +4980,7 @@ def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
 
         def fp32():
             return mlsa.cascade_unchunked_cuda(xq, c, weights, a, P, 0, nfft)
-        plan = mlsa.tc_unchunked_plans(nfft, M, P, 0, precision,
-                                       x.device)[:7]
+        plan = mlsa.tc_plans(nfft, M, P, 0, precision, x.device)[:7]
     kernel, fp32 = full_precision(kernel), full_precision(fp32)
     twin = full_precision(lambda: taylor_cascade_folded(
         x, c, weights, a, P, 0, nfft, precision))
@@ -5012,15 +5010,11 @@ def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
               f"twin's {d_cpu:.3e}")
     del y_k, y_t, y_f
     ms = cuda_ms(torch, kernel, 10)
-    if chunked:
-        dev_ms = kernel_device_ms(torch, kernel, "tc_stage_kernel")[0]
-        functions = ""
-    else:
-        dev_ms, each = tc_device_ms(torch, kernel, TC_UNCHUNKED_KERNELS)
-        functions = (
-            f"; device functions ({1 + 2 * S} launches: a prologue, then "
-            f"forward and inverse a stage; their union is the device time): "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in each.items()))
+    dev_ms, each = tc_device_ms(torch, kernel, TC_KERNELS)
+    functions = (
+        f"; device functions ({1 + 2 * S} launches: a prologue, then "
+        f"forward and inverse a stage; their union is the device time): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in each.items()))
     twin_ms = cuda_ms(torch, twin, 3, warm=1)
     fp32_ms = cuda_ms(torch, fp32, 10)
     f_hi, f_lo, g_hi, g_lo, _, n_blk, K = plan
@@ -5031,15 +5025,8 @@ def check_tc(torch, dev, chunked: bool, B: int, N: int, P: int, M: int,
     lib_ms, lib_kind = tc_library_ms(torch, dev, B * N, n_blk, P, K, S,
                                      passes)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    if chunked:
-        frames, rows, smem, per_sm = mlsa.tc_tile(P, Q, n_blk, K, precision)
-        blocks = -(-N // frames) * B
-        tile = (f"tile {frames} frames, {rows} rows, {smem} bytes of shared "
-                f"memory; {blocks} blocks, {per_sm} to an SM: "
-                f"{blocks / (per_sm * n_sm):.2f} waves on {n_sm} SMs")
-    else:
-        tile = tc_unchunked_tile_line(mlsa, B, N, P, plan[4], n_blk, K,
-                                      precision, n_sm)
+    tile = tc_tile_line(mlsa, B, N, P, Q, plan[4], n_blk, K, precision,
+                        chunked, n_sm)
     flops = 2.0 * (n_blk * P * 2 * K + 4 * K * P) * B * N * S * passes
     summary = (f"{'chunked' if chunked else 'unchunked'} {precision} P={P} "
                f"M={M} (Q={Q}, K={K}, n_blk={n_blk}) S={S}: |kernel-twin| "
@@ -5305,11 +5292,12 @@ def main() -> int:
                 "spd_solve").spd_solve_smem_bytes(24),
             "spd_solve (n=64)": build.library(
                 "spd_solve").spd_solve_smem_bytes(64),
-            "mlsa_cascade_tc chunked HIGH (P=80, Q=3)": mlsa.tc_tile(
-                80, 3, 3, 128, "HIGH"),
-            **{f"mlsa_cascade_tc unchunked {arm} (P=240)": {
-                k: v for k, v in mlsa.tc_unchunked_tile(
-                    240, 2, 3, 384, arm).items() if k != "layout"}
+            **{f"mlsa_cascade_tc {entry} {arm} ({geo})": {
+                k: v for k, v in mlsa.tc_tile(*args, arm, entry == "chunked")
+                .items() if k != "layout"}
+               for entry, geo, args in (
+                   ("chunked", "P=80, Q=3", (80, 3, 2, 3, 128)),
+                   ("unchunked", "P=240", (240, 1, 2, 3, 384)))
                for arm in ("HIGH", "DEFAULT")}}
     print(f"[build] done in {time.time() - t0:.1f} s; shared memory per "
           f"block at the flagship shapes (static for newton, dynamic for "

@@ -1,6 +1,6 @@
 // The Taylor MLSA cascade at the TPU's reduced precisions, for sm_90a: S
 // stages of the DFT-plan form on the tensor cores (bf16 operands, fp32
-// accumulators), in two C entries.
+// accumulators), in two C entries that run one pair of kernels.
 //
 // Replaces, at precision "HIGH" (bf16x3) and "DEFAULT" (one bf16 pass):
 // through mlsa_cascade_tc_chunked_f32 (the tap-chunked geometry, B2)
@@ -23,518 +23,82 @@
 // Each plan product is, at HIGH, ah bh + ah bl + al bh with the exact
 // splits hi = bf16_rn(v), lo = bf16_rn(v - hi), and at DEFAULT ah bh, all
 // summed in fp32.  The plans are split once a geometry, on the host
-// (kernels/mlsa.py); the activations (the context rows, then Y) every
+// (kernels/mlsa.py:tc_plans); the activations (the state, then Y) every
 // stage.
 //
-// THE CHUNKED ENTRY (tc_stage_kernel, mma.sync m16n8k16).
 // Bound on this card: operations.  Per frame row and stage the plans take
-// n_blk P x 2K + 2K x 2P multiply-adds (102,400 at P = 80, M = 199: Q = 3,
-// K = 128), 31.5 GFLOP per flagship call (B = 32, N = 240, S = 20) at one
-// pass: 0.032 ms at 989 TFLOP/s, three passes at HIGH 0.095 ms.  The bytes
-// (x, y and the coefficient spectra once, 24.6 MB at the flagship) take
-// 0.007 ms at 3.35 TB/s.
-// What the design does about it, first simply:
-// - A block owns F = 16 kMT - Q consecutive frames of one batch row (grid:
-//   tiles x B), so the forward product's 16 kMT rows (frames n0-Q+1 ..
-//   n0+F) are whole mma tiles.  It builds the rows' contexts (im2col, a
-//   row = n_blk P consecutive samples) as bf16 hi / lo in shared memory,
-//   then 8 warps each take 32 output columns at a time over every row:
-//   ldmatrix for A, the plan's B fragments straight from global memory (one
-//   coalesced 8-byte load a lane, prefetched a k-step ahead; the plans,
-//   0.4 MB a half at the flagship, stay in the 50 MB L2).
-// - X goes to shared memory in fp32; the Q-term complex products read the
-//   coefficient spectra from global memory (once per stage; they stay in
-//   L2 at the flagship, 23.6 MB) and write Y's split over the context rows
-//   (dead by then); the inverse product writes V over X.  A block holds
-//   67 KB at the flagship at HIGH (50 KB at DEFAULT).
-// - One launch per stage; all S are enqueued by one C call, stage s > 1
-//   as the programmatic dependent of stage s-1 (Hopper's PDL), the state
-//   in two ping-pong buffers, as mlsa_cascade.cu does.
-// Measured (chip_smoke.py [precision], H100 80GB HBM3, 700 W), ms per 20
-// stages at B = 32, N = 240, P = 80: HIGH 1.155-1.189 (12x the bound),
-// DEFAULT 0.685-0.712.
-// What it leaves for later: every block re-reads the whole plan each stage
-// (118 MB a stage from L2 at the flagship, 288 blocks); at HIGH 110
-// registers a thread leave two blocks to an SM, 1.09 waves; wgmma and TMA.
+// n_blk P x 2K + 2K x 2P multiply-adds: at the flagship (B = 32, N = 240,
+// P = 80, M = 199: Q = 3, nfft 254, K = 128, n_blk = 3) 31.5 GFLOP a call
+// of S = 20 at one pass, 0.032 ms at 989 TFLOP/s, 0.095 at HIGH; at
+// [chain48]'s P = 240, M = 199 (unchunked: nfft 766, K = 384) 283 GFLOP,
+// 0.286 and 0.859 ms.  The bytes (x, y, the coefficient spectra and the
+// plans once) take less: 0.007 ms at the flagship.
 //
-// THE UNCHUNKED ENTRY (tc_fwd_kernel, tc_inv_kernel: wgmma), redesigned.
-// Bound at [chain48]'s P = 240, M = 199 (nfft 766, K = 384, n_blk = 3,
-// r0 = 2; B = 32, N = 240, S = 20): operations, 720 x 768 + 768 x 480
-// multiply-adds a frame and stage, 283 GFLOP a call at one pass: 0.2863 ms
-// at 989 TFLOP/s, 0.8588 at HIGH.  The stage kernel this entry shared with
-// the chunked one (32 rows a block, 256 blocks, one an SM) read a whole
-// plan half, 720 x 768 + 768 x 480 bf16 = 1.84 MB (3.69 MB at HIGH), from
-// L2 in every block and stage: 472 MB a stage (944 MB at HIGH), 2.5 and
-// 4.0 TB/s of plan reads at its 3.83 and 4.73 ms; cuBLAS ran the same
-// products in 1.0 and 2.5-3.1 ms.
 // What the design does about it:
 // - A stage is two tensor-core GEMMs over every frame of every batch row,
 //   flattened into one M dimension, in tiles of 128 rows (two consumer
 //   warpgroups, wgmma m64) that share each plan tile.  The state lives
-//   split (bf16 hi, and lo at HIGH) in a padded layout: r0 zero frames
-//   before each batch row and n_blk - 1 - r0 after it (Np = N + n_blk - 1
-//   frames a row), each frame P8 = P rounded up to 8 wide (zeros past P),
-//   so that frame m's context is the row at m P8 of length n_blk P8 of one
-//   view with a 16-byte row stride; the plan's rows match it.
+//   split (bf16 hi, and lo at HIGH) in a padded layout: pre = Q - 1 + r0
+//   zero frames before each batch row and n_blk - 1 - r0 after it (one more
+//   where pre = 0), Np frames a row, each frame P8 = P rounded up to 8 wide
+//   (zeros past P).  Row i of a batch row is frame m = i - (Q - 1), whose
+//   context is the row at i P8 of length n_blk P8 of one view with a
+//   16-byte row stride; the plan's rows match it.  Frame N's context runs
+//   one frame into the next row's zero frames.
 // - tc_fwd_kernel: X = ctx @ Ffwd (K = n_blk P8 rounded up to 64, columns
 //   2 Kp, the real and imaginary part of a bin side by side, four
 //   consecutive bins a thread); its epilogue applies C in fp32 and writes
-//   Y split to a scratch (M x 2 Kp bf16: 11.9 MB, 23.8 MB at HIGH), 16
-//   bytes a store.  The coefficients (23.8 MB a stage, from device memory)
-//   load into registers, a float4 of each part a row and four bins, under
-//   the main loop.
+//   Y split to a scratch (M x 2 Kp bf16), 16 bytes a store.  Unchunked
+//   (Q = 1), the coefficients load into registers, a float4 of each part a
+//   row and four bins, under the main loop.  Chunked, the row tiles overlap
+//   by a halo of Q - 1 rows (a tile of 128 rows yields 129 - Q rows of Y):
+//   X goes through shared memory (over the ring) and the epilogue sums the
+//   Q terms of four rows at a time, the coefficient loads of up to four
+//   chunks issued together.
 // - tc_inv_kernel: V = Y @ G; a column tile holds the same p range of the
 //   lo and hi halves (in groups of 8 columns), a row tile 127 frames and a
 //   halo row; its epilogue blends V[n] with V[n+1] through shared memory,
 //   weighs, adds a_s out to y (read under the main loop) and writes the
-//   next state already split, four p a thread.
+//   next state already split, four p a thread.  Chunked, it first moves
+//   the spectra of its frames into L2 (cp.async.bulk.prefetch) for the
+//   next stage's forward epilogue: they do not stay there from one stage
+//   to the next.
 // - Operands: the plans sit on the host in the exact image of a ring stage
 //   (K-major, 128-byte swizzle), so one bulk copy (TMA, cp.async.bulk on an
 //   mbarrier) moves a tile; the rows of A come by cp.async, 16 bytes a
 //   thread with zero fill, since the context rows overlap (row stride P8,
-//   length n_blk P8: not a tensor map's box) and the inverse tiles start
-//   at any row.  A ring of 4 stages (3 at HIGH) keeps two (one) k-steps
-//   of loads ahead of the wgmma, one warpgroup-group in flight.
-// - Plan traffic: each plan tile is read by 128 rows, not 32: 117 MB a
-//   stage at DEFAULT, 240 MB at HIGH (the A rows add 71 and 238 MB).  The
-//   coefficients stream through L2 marked evict-first.
-// - A geometry whose plans pass 24 MB is refused (no tile): the tiles
-//   re-read them from L2.
+//   length n_blk P8: not a tensor map's box) and the tiles start at any
+//   row.  A ring of 3 to 6 stages keeps one to four k-steps of loads ahead
+//   of the wgmma, one warpgroup-group in flight.
+// - Tiles (Tiles<high, chunked>): unchunked, 128 x 192 forward and
+//   128 x 240 inverse at DEFAULT, 128 x 128 both at HIGH; chunked, 128 x
+//   128 forward (two column tiles at K = 128) and 128 x 80 inverse (40 p a
+//   tile: two at P = 80), so that the flagship's 7,808 rows make 124 CTAs
+//   of each kernel on the 132 SMs, with every k-step of the forward's and
+//   the inverse's K = 256 in flight at once at DEFAULT (6 ring stages).
+// - An unchunked geometry whose plans pass 24 MB is refused (no tile): its
+//   tiles re-read them from L2.  Q is at most 64.
 // - Launches: a prologue kernel splits x into the padded state once, then
 //   two a stage, each the programmatic dependent of the one before (its
 //   first plan tiles load before it waits).
-// Measured (tools/torch_tc_cascade_ab.py, H100 80GB HBM3, 700 W), ms per
-// 20 stages at [chain48]'s shapes: HIGH 1.985-2.009 (2.3x the bound),
-// DEFAULT 0.893-0.914 (3.1x), against 4.73 and 3.80 before; cuBLAS's same
-// products 2.66-3.09 and 0.81-1.07 in the same runs.  What holds it back
-// (the build variants MLSA_TC_NO_PDL, MLSA_TC_ABLATE_EPILOGUE and
-// MLSA_TC_ABLATE_MMA): the products alone take 0.36 ms at DEFAULT (1.21
-// at HIGH) and run as fast without the wgmma, so the main loop is bound by
-// its loads from L2 (about 10 and 7 TB/s); the epilogues, whose
-// coefficient reads and y, Y and state traffic wait on device memory at
-// one block an SM, take the rest.
+// Measured (tools/torch_tc_cascade_ab.py and chip_smoke.py [precision],
+// H100 80GB HBM3, 700 W), ms per 20 stages: chunked at the flagship HIGH
+// about 0.55 and DEFAULT 0.41-0.46 (the mma.sync kernel it replaced:
+// 1.15-1.16 and 0.68-0.72), 6x and 13x the bound; unchunked at P = 240
+// HIGH 2.0 and DEFAULT 0.89 (PERF.md's kernel table).  What holds
+// the chunked entry back (the build variants MLSA_TC_NO_PDL,
+// MLSA_TC_ABLATE_EPILOGUE, MLSA_TC_ABLATE_MMA and MLSA_TC_NO_PREFETCH):
+// the forward epilogue, about 8 of a stage's 18 us on the device, bound by
+// the 23.6 MB of spectra it reads a stage; the products are as fast
+// without the wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kNT = 4;               // n8 tiles a warp takes at a time
-constexpr int kMaxSmem = 232448;     // bytes of shared memory a block may use
-
-__host__ __device__ constexpr int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-// The geometry of one call, fixed on the host.
-struct Geo {
-  int N, P, Q, r0;
-  int nbP;    // n_blk P: a context row's samples
-  int Kc1;    // the forward contraction, nbP rounded up to 16
-  int K, Kp;  // spectrum bins, and rounded up to 16
-  int N2;     // the inverse product's columns, 2P rounded up to 32
-  int lda;    // bf16 row stride of the A operands (a multiple of 16, + 8)
-  int ldx;    // fp32 row stride of X and V
-  int F, tiles;
-};
-
-__host__ __device__ inline int smem_bytes(const Geo& g, int rows, bool high) {
-  return (high ? 2 : 1) * rows * g.lda * 2 + rows * g.ldx * 4;
-}
-
-Geo make_geo(int N, int P, int Q, int r0, int n_blk, int K) {
-  Geo g;
-  g.N = N;
-  g.P = P;
-  g.Q = Q;
-  g.r0 = r0;
-  g.nbP = n_blk * P;
-  g.Kc1 = round_up(g.nbP, 16);
-  g.K = K;
-  g.Kp = round_up(K, 16);
-  g.N2 = round_up(2 * P, 32);
-  const int widest = g.Kc1 > 2 * g.Kp ? g.Kc1 : 2 * g.Kp;
-  g.lda = widest + 8;
-  g.ldx = (2 * g.Kp > g.N2 ? 2 * g.Kp : g.N2) + 4;
-  g.F = 0;
-  g.tiles = 0;
-  return g;
-}
-
-// Rows of the block's products (16 kMT): 32 where it fits, else 16; 0
-// where neither does.
-int choose_rows(const Geo& g, bool high) {
-  for (int rows = 32; rows >= 16; rows -= 16) {
-    if (rows - g.Q >= 1 && smem_bytes(g, rows, high) <= kMaxSmem) {
-      return rows;
-    }
-  }
-  return 0;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// v = hi + lo, both bf16, rounded to nearest (lo is v - hi rounded).
-__device__ __forceinline__ void split(float v, __nv_bfloat16& hi,
-                                      __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(v);
-  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
-}
-
-// Two neighbouring values of row ``row``, columns ``col``, ``col`` + 1
-// (even), into the hi (and, at HIGH, lo) A operands.
-template <bool kHigh>
-__device__ __forceinline__ void put2(__nv_bfloat16* ah, __nv_bfloat16* al,
-                                     int idx, float v0, float v1) {
-  __nv_bfloat16 h0, l0, h1, l1;
-  split(v0, h0, l0);
-  split(v1, h1, l1);
-  *reinterpret_cast<__nv_bfloat162*>(ah + idx) = __halves2bfloat162(h0, h1);
-  if (kHigh) {
-    *reinterpret_cast<__nv_bfloat162*>(al + idx) = __halves2bfloat162(l0, l1);
-  }
-}
-
-template <bool kHigh>
-__device__ __forceinline__ void load_b(uint2 (&bh)[kNT], uint2 (&bl)[kNT],
-                                       const uint2* __restrict__ Bh,
-                                       const uint2* __restrict__ Bl,
-                                       size_t base) {
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    bh[j] = __ldg(Bh + base + 32 * j);
-    if (kHigh) bl[j] = __ldg(Bl + base + 32 * j);
-  }
-}
-
-// One warp's share of out (16 kMT x 8 n_tiles, fp32, row stride ldo) =
-// A (16 kMT x 16 ksteps, bf16 hi / lo in shared memory, row stride lda) @ B
-// (fragment order: (k-step, n-tile, lane) of 4 bf16, hi / lo): the column
-// groups of 32 warp, warp + kWarps, ...
-template <bool kHigh, int kMT>
-__device__ void warp_gemm(const __nv_bfloat16* Ah, const __nv_bfloat16* Al,
-                          int lda, int ksteps, const uint2* __restrict__ Bh,
-                          const uint2* __restrict__ Bl, int n_tiles,
-                          float* out, int ldo, int warp, int lane) {
-  for (int grp = warp; grp * kNT < n_tiles; grp += kWarps) {
-    float acc[kMT][kNT][4];
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    const size_t col0 = static_cast<size_t>(grp) * kNT * 32 + lane;
-    const size_t kstride = static_cast<size_t>(n_tiles) * 32;
-    uint2 bh[kNT], bl[kNT], nh[kNT], nl[kNT];
-    load_b<kHigh>(bh, bl, Bh, Bl, col0);
-    const int arow = lane & 15;
-    const int acol = (lane >> 4) * 8;
-    for (int kt = 0; kt < ksteps; ++kt) {
-      if (kt + 1 < ksteps) {
-        load_b<kHigh>(nh, nl, Bh, Bl, col0 + (kt + 1) * kstride);
-      }
-      uint32_t ah[kMT][4], al[kMT][4];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const int off = (16 * i + arow) * lda + 16 * kt + acol;
-        ldmatrix_x4(ah[i], Ah + off);
-        if (kHigh) ldmatrix_x4(al[i], Al + off);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          mma_bf16(acc[i][j], ah[i], bh[j]);
-          if (kHigh) {
-            mma_bf16(acc[i][j], ah[i], bl[j]);
-            mma_bf16(acc[i][j], al[i], bh[j]);
-          }
-        }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        bh[j] = nh[j];
-        if (kHigh) bl[j] = nl[j];
-      }
-    }
-    const int r = lane >> 2;
-    const int cc = (lane & 3) * 2;
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        float* o = out + (16 * i + r) * ldo + (grp * kNT + j) * 8 + cc;
-        *reinterpret_cast<float2*>(o) = make_float2(acc[i][j][0],
-                                                    acc[i][j][1]);
-        *reinterpret_cast<float2*>(o + 8 * ldo) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
-      }
-  }
-}
-
-template <bool kHigh, int kMT>
-__global__ void __launch_bounds__(kThreads)
-tc_stage_kernel(const float* __restrict__ xin, const float* __restrict__ x0,
-                float* __restrict__ xout, float* __restrict__ y,
-                const float* __restrict__ cre, const float* __restrict__ cim,
-                const uint2* __restrict__ f_hi, const uint2* __restrict__ f_lo,
-                const uint2* __restrict__ g_hi, const uint2* __restrict__ g_lo,
-                const float* __restrict__ w, const float* __restrict__ a,
-                Geo g, int S, int s) {
-  constexpr int kRows = 16 * kMT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* al = ah + kRows * g.lda;
-  float* xs = reinterpret_cast<float*>(smem + (kHigh ? 2 : 1) * kRows *
-                                                  g.lda * 2);
-  const int b = blockIdx.x / g.tiles;
-  const int n0 = (blockIdx.x - b * g.tiles) * g.F;
-  const int N = g.N, P = g.P, Q = g.Q;
-  const long long T = static_cast<long long>(N) * P;
-  const float* xb = xin + b * T;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  // Wait for the previous stage (a no-op unless launched as its
-  // programmatic dependent).
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-
-  // 1. The contexts of frames n0-Q+1 .. n0+F as rows of A, split.
-  const int half1 = g.Kc1 / 2;
-  for (int idx = tid; idx < kRows * half1; idx += kThreads) {
-    const int i = idx / half1;
-    const int kk = 2 * (idx - i * half1);
-    const long long m = n0 - (Q - 1) + i;
-    const long long pos = (m - g.r0) * P + kk;
-    float v[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const long long q = pos + e;
-      v[e] = kk + e < g.nbP && q >= 0 && q < T ? xb[q] : 0.f;
-    }
-    put2<kHigh>(ah, al, i * g.lda + kk, v[0], v[1]);
-  }
-  __syncthreads();
-
-  // 2. X = contexts @ Ffwd, into shared memory.
-  warp_gemm<kHigh, kMT>(ah, al, g.lda, g.Kc1 / 16, f_hi, f_lo, 2 * g.Kp / 8,
-                        xs, g.ldx, warp, lane);
-  __syncthreads();
-
-  // 3. Y of frames n0 .. n0+F (row f: frame n0+f; frame N takes C[N-1]),
-  //    split into the A operand of the inverse product.  Rows past F or
-  //    past frame N, and bins past K, are zero.
-  const int halfK = g.Kp / 2;
-  for (int idx = tid; idx < kRows * halfK; idx += kThreads) {
-    const int f = idx / halfK;
-    const int k = 2 * (idx - f * halfK);
-    const int n = n0 + f;
-    float yr[2] = {0.f, 0.f}, yi[2] = {0.f, 0.f};
-    if (f <= g.F && n <= N) {
-      const int nc = n < N ? n : N - 1;
-      const size_t crow = (static_cast<size_t>(b) * N + nc) * Q;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (k + e >= g.K) break;
-        for (int j = 0; j < Q; ++j) {
-          const float* xr = xs + (f + Q - 1 - j) * g.ldx;
-          const float re = xr[k + e];
-          const float im = xr[g.Kp + k + e];
-          const size_t ci = (crow + j) * g.K + k + e;
-          const float c_re = cre[ci];
-          const float c_im = cim[ci];
-          yr[e] += re * c_re - im * c_im;
-          yi[e] += re * c_im + im * c_re;
-        }
-      }
-    }
-    put2<kHigh>(ah, al, f * g.lda + k, yr[0], yr[1]);
-    put2<kHigh>(ah, al, f * g.lda + g.Kp + k, yi[0], yi[1]);
-  }
-  __syncthreads();
-
-  // 4. V = [Yre | Yim] @ [Gre; Gim], over X.
-  warp_gemm<kHigh, kMT>(ah, al, g.lda, 2 * g.Kp / 16, g_hi, g_lo, g.N2 / 8,
-                        xs, g.ldx, warp, lane);
-  __syncthreads();
-
-  // 5. Blend with the next frame, stage weight, Taylor sum.
-  const float w_s = w[s];
-  const float a_0 = a[0];
-  const float a_s = a[s];
-  for (int idx = tid; idx < g.F * P; idx += kThreads) {
-    const int f = idx / P;
-    const int p = idx - f * P;
-    const int n = n0 + f;
-    if (n >= N) break;
-    const float val = (xs[f * g.ldx + p] + xs[(f + 1) * g.ldx + P + p]) * w_s;
-    const size_t i = (static_cast<size_t>(b) * N + n) * P + p;
-    if (s < S) xout[i] = val;
-    const float prev = s == 1 ? a_0 * x0[i] : y[i];
-    y[i] = prev + a_s * val;
-  }
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-template <bool kHigh, int kMT>
-int set_smem_attribute() {
-  static int err = static_cast<int>(
-      cudaFuncSetAttribute(tc_stage_kernel<kHigh, kMT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxSmem));
-  return err;
-}
-
-template <bool kHigh, int kMT>
-cudaError_t launch(const cudaLaunchConfig_t& cfg, const float* src,
-                   const float* x0, float* dst, float* y, const float* cre,
-                   const float* cim, const uint2* fh, const uint2* fl,
-                   const uint2* gh, const uint2* gl, const float* w,
-                   const float* a, const Geo& g, int S, int s) {
-  if (cfg.dynamicSmemBytes > 48 * 1024) {
-    const int err = set_smem_attribute<kHigh, kMT>();
-    if (err != 0) return static_cast<cudaError_t>(err);
-  }
-  return cudaLaunchKernelEx(&cfg, tc_stage_kernel<kHigh, kMT>, src, x0, dst,
-                            y, cre, cim, fh, fl, gh, gl, w, a, g, S, s);
-}
-
-int run_cascade(const void* x, const void* cre, const void* cim,
-                const void* f_hi, const void* f_lo, const void* g_hi,
-                const void* g_lo, const void* w, const void* a, void* buf,
-                void* y, int B, int N, int P, int Q, int r0, int n_blk, int K,
-                int S, int high, void* stream) {
-  if (B < 1 || N < 1 || P < 1 || Q < 1 || r0 < 0 || n_blk < 1 || K < 1 ||
-      S < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Geo g = make_geo(N, P, Q, r0, n_blk, K);
-  const int rows = choose_rows(g, high != 0);
-  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
-  g.F = rows - Q;
-  g.tiles = (N + g.F - 1) / g.F;
-  if (static_cast<long long>(g.tiles) * B > 2147483647LL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.tiles * B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes(g, rows, high != 0);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  const float* x0 = static_cast<const float*>(x);
-  const float* cr = static_cast<const float*>(cre);
-  const float* ci = static_cast<const float*>(cim);
-  const uint2* fh = static_cast<const uint2*>(f_hi);
-  const uint2* fl = static_cast<const uint2*>(f_lo);
-  const uint2* gh = static_cast<const uint2*>(g_hi);
-  const uint2* gl = static_cast<const uint2*>(g_lo);
-  const float* wf = static_cast<const float*>(w);
-  const float* af = static_cast<const float*>(a);
-  float* buf0 = static_cast<float*>(buf);
-  float* buf1 = buf0 + static_cast<size_t>(B) * N * P;
-  float* yf = static_cast<float*>(y);
-  const float* src = x0;
-  for (int s = 1; s <= S; ++s) {
-    float* dst = s % 2 ? buf1 : buf0;
-    cfg.attrs = s > 1 ? &attr : nullptr;
-    cfg.numAttrs = s > 1 ? 1 : 0;
-    cudaError_t err;
-    if (high) {
-      err = rows == 32 ? launch<true, 2>(cfg, src, x0, dst, yf, cr, ci, fh,
-                                         fl, gh, gl, wf, af, g, S, s)
-                       : launch<true, 1>(cfg, src, x0, dst, yf, cr, ci, fh,
-                                         fl, gh, gl, wf, af, g, S, s);
-    } else {
-      err = rows == 32 ? launch<false, 2>(cfg, src, x0, dst, yf, cr, ci, fh,
-                                          fl, gh, gl, wf, af, g, S, s)
-                       : launch<false, 1>(cfg, src, x0, dst, yf, cr, ci, fh,
-                                          fl, gh, gl, wf, af, g, S, s);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    src = dst;
-  }
-  return 0;
-}
-
-// Blocks of one instance that fit on an SM at ``bytes`` of shared memory
-// (0 where the query fails).
-template <bool kHigh, int kMT>
-int blocks_per_sm(int bytes) {
-  if (bytes > 48 * 1024 && set_smem_attribute<kHigh, kMT>() != 0) return 0;
-  int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, tc_stage_kernel<kHigh, kMT>, kThreads, bytes) != cudaSuccess) {
-    return 0;
-  }
-  return n;
-}
-
-}  // namespace
-
-// The tile of a geometry at one arm: frames per block, rows of its
-// products and the blocks that fit on one SM through the pointers; returns
-// its shared memory in bytes, or -1 where no tile fits (the geometry is
-// refused).
-extern "C" int mlsa_cascade_tc_tile(int P, int Q, int n_blk, int K, int high,
-                                    int* frames, int* rows, int* per_sm) {
-  if (P < 1 || Q < 1 || n_blk < 1 || K < 1) return -1;
-  const Geo g = make_geo(1, P, Q, 0, n_blk, K);
-  const int r = choose_rows(g, high != 0);
-  *frames = r ? r - Q : 0;
-  *rows = r;
-  if (!r) return -1;
-  const int bytes = smem_bytes(g, r, high != 0);
-  *per_sm = high ? (r == 32 ? blocks_per_sm<true, 2>(bytes)
-                            : blocks_per_sm<true, 1>(bytes))
-                 : (r == 32 ? blocks_per_sm<false, 2>(bytes)
-                            : blocks_per_sm<false, 1>(bytes));
-  return bytes;
-}
-
-// The tap-chunked geometry (the B2 row): x (B, N, P) float32; the
-// coefficient spectra cre, cim (B, N, Q, K) float32; the plans f_hi, f_lo
-// (forward) and g_hi, g_lo (inverse) in fragment order (kernels/mlsa.py:
-// tc_plans; f_lo and g_lo unread unless high); the stage weights w (S+1)
-// and Taylor coefficients a (S+1); buf (2, B, N, P) scratch; y (B, N, P).
-// high: 1 for bf16x3 (HIGH), 0 for one bf16 pass (DEFAULT).  Enqueues S
-// launches; returns the first launch error.
-extern "C" int mlsa_cascade_tc_chunked_f32(
-    const void* x, const void* cre, const void* cim, const void* f_hi,
-    const void* f_lo, const void* g_hi, const void* g_lo, const void* w,
-    const void* a, void* buf, void* y, int B, int N, int P, int Q, int r0,
-    int n_blk, int K, int S, int high, void* stream) {
-  return run_cascade(x, cre, cim, f_hi, f_lo, g_hi, g_lo, w, a, buf, y, B, N,
-                     P, Q, r0, n_blk, K, S, high, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The unchunked entry (the B3 row): two warpgroup GEMMs a stage.  Inside
-// an unnamed namespace, as the rest: a static local of a template function
-// with external linkage would be one object across every variant library
-// of this source loaded into a process.
-
+// Inside an unnamed namespace: a static local of a template function with
+// external linkage would be one object across every variant library of
+// this source loaded into a process.
 namespace {
 namespace wg {
 
@@ -542,20 +106,36 @@ constexpr int kBM = 128;       // rows of a tile: two consumer warpgroups
 constexpr int kBK = 64;        // K of a ring stage: one 128-byte bf16 row
 constexpr int kThreads = 256;
 constexpr int kTileA = kBM * 2 * kBK;          // bytes of an A tile
-constexpr long long kPlanBudget = 24LL << 20;  // bytes of plans, at most
+constexpr long long kPlanBudget = 24LL << 20;  // unchunked plans, at most
+constexpr int kMaxQ = 64;                      // tap chunks, at most
 
-// Columns of the forward and inverse tiles and ring stages at each arm.
-template <bool kHigh>
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// Columns of the forward and inverse tiles and ring stages at each arm and
+// entry.
+template <bool kHigh, bool kChunked>
 struct Tiles;
 template <>
-struct Tiles<false> {
+struct Tiles<false, false> {
   static constexpr int kFwdN = 192, kInvN = 240, kFwdStages = 4,
                        kInvStages = 4;
 };
 template <>
-struct Tiles<true> {
+struct Tiles<true, false> {
   static constexpr int kFwdN = 128, kInvN = 128, kFwdStages = 3,
                        kInvStages = 3;
+};
+template <>
+struct Tiles<false, true> {
+  static constexpr int kFwdN = 128, kInvN = 80, kFwdStages = 6,
+                       kInvStages = 6;
+};
+template <>
+struct Tiles<true, true> {
+  static constexpr int kFwdN = 128, kInvN = 80, kFwdStages = 3,
+                       kInvStages = 4;
 };
 
 // A ring stage: [A hi | A lo | B hi | B lo] (lo at HIGH only), each part
@@ -570,8 +150,8 @@ struct Ring {
   static constexpr int kBytes = 1024 + kStages * kStage + 8 * kStages;
 };
 
-// The layout of one geometry at one arm, fixed on the host
-// (kernels/mlsa.py:tc_unchunked_layout computes the same).
+// The layout of one geometry at one arm and entry, fixed on the host
+// (kernels/mlsa.py:tc_layout computes the same).
 struct Layout {
   int P, P8, n_blk, K, Kp;
   int kf, Kf;        // forward contraction n_blk P8, and rounded up to kBK
@@ -579,9 +159,13 @@ struct Layout {
   int bn_f, bn_i;    // the forward and inverse tiles' columns
   int w, n_ctile;    // frame columns a tile of the inverse, and its tiles
   int Ni;            // inverse columns: n_ctile bn_i
+  int Q;             // tap chunks (1: unchunked)
+  int pre, after;    // zero frames before and after each batch row
 };
 
-Layout make_layout(int P, int n_blk, int K, bool high) {
+template <bool kHigh, bool kChunked>
+Layout make_layout(int P, int Q, int r0, int n_blk, int K) {
+  using T = Tiles<kHigh, kChunked>;
   Layout L;
   L.P = P;
   L.P8 = round_up(P, 8);
@@ -590,13 +174,26 @@ Layout make_layout(int P, int n_blk, int K, bool high) {
   L.Kp = round_up(K, 32);
   L.kf = n_blk * L.P8;
   L.Kf = round_up(L.kf, kBK);
-  L.bn_f = high ? Tiles<true>::kFwdN : Tiles<false>::kFwdN;
-  L.bn_i = high ? Tiles<true>::kInvN : Tiles<false>::kInvN;
+  L.bn_f = T::kFwdN;
+  L.bn_i = T::kInvN;
   L.Nf = round_up(2 * L.Kp, L.bn_f);
   L.w = L.bn_i / 2;
   L.n_ctile = (P + L.w - 1) / L.w;
   L.Ni = L.n_ctile * L.bn_i;
+  L.Q = Q;
+  L.pre = Q - 1 + r0;
+  L.after = n_blk - 1 - r0 + (L.pre == 0 ? 1 : 0);
   return L;
+}
+
+Layout layout_of(int P, int Q, int r0, int n_blk, int K, bool high,
+                 bool chunked) {
+  if (chunked) {
+    return high ? make_layout<true, true>(P, Q, r0, n_blk, K)
+                : make_layout<false, true>(P, Q, r0, n_blk, K);
+  }
+  return high ? make_layout<true, false>(P, Q, r0, n_blk, K)
+              : make_layout<false, false>(P, Q, r0, n_blk, K);
 }
 
 long long plan_bytes(const Layout& L, bool high) {
@@ -608,18 +205,25 @@ long long plan_bytes(const Layout& L, bool high) {
 // n_blk frames of zeros after the last) and Y, each hi (and lo at HIGH),
 // each part 1 KB aligned.
 struct Work {
+  long long Np;          // frames a batch row in the padded state
   long long state, ys;   // elements of a state part and of a Y part
   long long bytes;
 };
 
 Work make_work(int B, int N, const Layout& L, bool high) {
-  const long long Np = N + L.n_blk - 1;
   Work k;
-  k.state = ((static_cast<long long>(B) * Np + L.n_blk) * L.P8 + 511) /
-            512 * 512;
-  k.ys = (static_cast<long long>(B) * Np * 2 * L.Kp + 511) / 512 * 512;
+  k.Np = static_cast<long long>(L.pre) + N + L.after;
+  k.state = ((B * k.Np + L.n_blk) * L.P8 + 511) / 512 * 512;
+  k.ys = (B * k.Np * 2 * L.Kp + 511) / 512 * 512;
   k.bytes = (2 * k.state + k.ys) * 2 * (high ? 2 : 1);
   return k;
+}
+
+// v = hi + lo, both bf16, rounded to nearest (lo is v - hi rounded).
+__device__ __forceinline__ void split(float v, __nv_bfloat16& hi,
+                                      __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -643,6 +247,14 @@ __device__ __forceinline__ void ld_stream4(float (&v)[4], const float* p,
       "[%4], %5;\n"
       : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
       : "l"(p), "l"(policy));
+}
+
+// ``bytes`` (a multiple of 16) from global memory (16-byte aligned) into
+// L2, with no thread waiting for them.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
+               "r"(bytes)
+               : "memory");
 }
 
 // The L2 cache policy evict-first, for data read once.
@@ -734,6 +346,27 @@ __device__ __forceinline__ void fence_acc(float (&d)[kR]) {
 // d (64 x N, fp32) += A (64 x 16) B (16 x N), both bf16 K-major in shared
 // memory.  Inline assembly names every accumulator register, so each
 // width is written out.
+__device__ __forceinline__ void wgmma_n80(float (&d)[40], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
                                           uint64_t b) {
   asm volatile(
@@ -845,8 +478,11 @@ __device__ __forceinline__ void wgmma_n240(float (&d)[120], uint64_t a,
 template <int kBN>
 __device__ __forceinline__ void wgmma(float (&d)[kBN / 2], uint64_t a,
                                       uint64_t b) {
-  static_assert(kBN == 128 || kBN == 192 || kBN == 240, "tile width");
-  if constexpr (kBN == 128) {
+  static_assert(kBN == 80 || kBN == 128 || kBN == 192 || kBN == 240,
+                "tile width");
+  if constexpr (kBN == 80) {
+    wgmma_n80(d, a, b);
+  } else if constexpr (kBN == 128) {
     wgmma_n128(d, a, b);
   } else if constexpr (kBN == 192) {
     wgmma_n192(d, a, b);
@@ -856,8 +492,8 @@ __device__ __forceinline__ void wgmma(float (&d)[kBN / 2], uint64_t a,
 }
 
 // The A rows of k-block kb into a ring stage, 16 bytes a thread, with the
-// 128-byte swizzle (chunk c of row r at chunk c ^ (r & 7)); rows past
-// ``rows`` and columns past ``kvalid`` read as zeros.
+// 128-byte swizzle (chunk c of row r at chunk c ^ (r & 7)); rows before 0
+// or past ``rows`` and columns past ``kvalid`` read as zeros.
 template <bool kHigh>
 __device__ __forceinline__ void load_a(uint32_t dst,
                                        const __nv_bfloat16* a_hi,
@@ -871,7 +507,7 @@ __device__ __forceinline__ void load_a(uint32_t dst,
     const int c = q & 7;
     const int row = row0 + r;
     const int k = kb * kBK + c * 8;
-    const bool ok = row < rows && k < kvalid;
+    const bool ok = row >= 0 && row < rows && k < kvalid;
     const long long off = ok ? row * lda + k : 0;
     const uint32_t s = dst + r * 128 + ((c ^ (r & 7)) << 4);
     cp_async16(s, a_hi + off, ok);
@@ -974,12 +610,15 @@ __device__ __forceinline__ void mainloop(
   fence_acc(acc);
 }
 
-// Stage s, first GEMM: X = ctx @ Ffwd over one tile of 128 rows (frames
-// of the flattened padded grid) by kFwdN columns (bins' re, im side by
-// side), then Y = X * C[b, min(m, N-1)] for frames m <= N (zero
-// otherwise), split, into the scratch y (M x 2 Kp, bin k's re and im at
-// 2k, 2k + 1).  Grid: row tiles x column tiles, the column tile fastest.
-template <bool kHigh>
+// Stage s, first GEMM: X = ctx @ Ffwd over one tile of 128 rows (rows of
+// the flattened padded grid: row i of a batch row is frame i - (Q - 1)) by
+// kFwdN columns (bins' re, im side by side), then Y[i] = sum_j X[i - j] *
+// C[b, min(m, N-1), j] for frames 0 <= m <= N (zero otherwise), split,
+// into the scratch y (M x 2 Kp, bin k's re and im at 2k, 2k + 1).  The row
+// tiles step by 129 - Q rows, the first starting at row 1 - Q: each tile
+// writes Y for its rows but the first Q - 1.  Grid: row tiles x column
+// tiles, the column tile fastest.
+template <bool kHigh, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_fwd_kernel(const __nv_bfloat16* __restrict__ st_hi,
               const __nv_bfloat16* __restrict__ st_lo,
@@ -989,59 +628,66 @@ tc_fwd_kernel(const __nv_bfloat16* __restrict__ st_hi,
               __nv_bfloat16* __restrict__ y_hi,
               __nv_bfloat16* __restrict__ y_lo, Layout L, int N, int Np,
               int M) {
-  constexpr int kBN = Tiles<kHigh>::kFwdN;
-  constexpr int kStages = Tiles<kHigh>::kFwdStages;
+  constexpr int kBN = Tiles<kHigh, kChunked>::kFwdN;
+  constexpr int kStages = Tiles<kHigh, kChunked>::kFwdStages;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t base = smem_u32(wg_smem);
   const uint32_t ring = (base + 1023u) & ~1023u;
   const int n_tiles = L.Nf / kBN;
   const int tn = blockIdx.x % n_tiles;
-  const int row0 = (blockIdx.x / n_tiles) * kBM;
+  const int qh = L.Q - 1;
+  const int row0 = (blockIdx.x / n_tiles) * (kBM - qh) - qh;
   const int n0 = tn * kBN;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int ld = 2 * L.Kp;
+  const int t4 = 4 * (lane & 3);
+  const bool vec = L.K % 4 == 0;
+  // The spectra: row (b, n, j) of 2K floats, re at k, im at K + k.
+  const size_t crs = 2 * static_cast<size_t>(L.K);
+  auto crow = [&](int b, int m) {
+    return (static_cast<size_t>(b) * N + (m < N ? m : N - 1)) * L.Q * crs;
+  };
+  constexpr int kQ = kBN / 32;
 
-  // Column c = 32 g + 8 jj + 2 t + e of the plan holds part e (re, im) of
-  // bin 16 g + 4 t + jj, so that a thread (t = lane & 3) holds four
-  // consecutive bins of each row: it loads their coefficients as one
+  // Unchunked: column c = 32 g + 8 jj + 2 t + e of the plan holds part e
+  // (re, im) of bin 16 g + 4 t + jj, so that a thread (t = lane & 3) holds
+  // four consecutive bins of each row: it loads their coefficients as one
   // float4 (where K % 4 == 0) and stores their Y as 16 bytes.  The
   // coefficients of its two rows load into registers once the ring's
   // first loads are issued (the spectra are inputs of the call, ready
   // before the first stage): their latency hides under the main loop.
   // They stream through L2 marked evict-first (23.8 MB a stage at
   // [chain48]'s shapes, read once a stage), so that they push less of Y,
-  // the state and y out of it.  A row of the spectra is 2K floats: re at
-  // k, im at K + k.
-  constexpr int kQ = kBN / 32;
-  const int t4 = 4 * (lane & 3);
-  const bool vec = L.K % 4 == 0;
-  int rows[2];
-  bool live[2];
-  float c_re[2][kQ][4], c_im[2][kQ][4];
+  // the state and y out of it.
+  constexpr int kRegC = kChunked ? 1 : 2;
+  int rows[kRegC];
+  bool live[kRegC];
+  float c_re[kRegC][kQ][4], c_im[kRegC][kQ][4];
   auto load_c = [&] {
-    const uint64_t policy = evict_first();
+    if constexpr (!kChunked) {
+      const uint64_t policy = evict_first();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rows[h] = row0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 +
-                (lane >> 2) + 8 * h;
-      const int b = rows[h] < M ? rows[h] / Np : 0;
-      const int m = rows[h] - b * Np;
-      live[h] = rows[h] < M && m <= N;
-      const size_t crow =
-          (static_cast<size_t>(b) * N + (m < N ? m : N - 1)) * 2 * L.K;
+      for (int h = 0; h < 2; ++h) {
+        rows[h] = row0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 +
+                  (lane >> 2) + 8 * h;
+        const int b = rows[h] < M ? rows[h] / Np : 0;
+        const int m = rows[h] - b * Np;
+        live[h] = rows[h] < M && m <= N;
+        const size_t cr = crow(b, m);
 #pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const int k0 = n0 / 2 + 16 * q + t4;
-        if (vec && live[h] && k0 < L.K) {
-          ld_stream4(c_re[h][q], cre + crow + k0, policy);
-          ld_stream4(c_im[h][q], cim + crow + k0, policy);
-        } else {
+        for (int q = 0; q < kQ; ++q) {
+          const int k0 = n0 / 2 + 16 * q + t4;
+          if (vec && live[h] && k0 < L.K) {
+            ld_stream4(c_re[h][q], cre + cr + k0, policy);
+            ld_stream4(c_im[h][q], cim + cr + k0, policy);
+          } else {
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const bool ok = live[h] && k0 + jj < L.K;
-            c_re[h][q][jj] = ok ? __ldg(cre + crow + k0 + jj) : 0.f;
-            c_im[h][q][jj] = ok ? __ldg(cim + crow + k0 + jj) : 0.f;
+            for (int jj = 0; jj < 4; ++jj) {
+              const bool ok = live[h] && k0 + jj < L.K;
+              c_re[h][q][jj] = ok ? __ldg(cre + cr + k0 + jj) : 0.f;
+              c_im[h][q][jj] = ok ? __ldg(cim + cr + k0 + jj) : 0.f;
+            }
           }
         }
       }
@@ -1055,38 +701,156 @@ tc_fwd_kernel(const __nv_bfloat16* __restrict__ st_hi,
 #ifdef MLSA_TC_ABLATE_EPILOGUE
   return;
 #endif
+  if constexpr (kChunked) {
+    // X (fp32) into shared memory over the ring: row r holds the re of
+    // the tile's kNb bins, then their im.
+    constexpr int kNb = kBN / 2;
+    constexpr int kLdx = kBN + 16;
+    constexpr int kG = kNb / 4;       // groups of four bins a row
+    constexpr int kIt = 4;            // rows' groups a thread takes at once
+    constexpr int kJ = 4;             // chunks whose loads issue together
+    static_assert(kBM * kLdx * 4 <=
+                      kStages * Ring<kHigh, kBN, kStages>::kStage,
+                  "X fits over the ring");
+    float* xs = reinterpret_cast<float*>(wg_smem + (ring - base));
+    __syncthreads();   // every warpgroup's products are done with the ring
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= M) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int r = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2) +
+                    8 * h;
 #pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int k0 = n0 / 2 + 16 * q + t4;
-      if (2 * k0 >= ld) continue;
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * q + jj;
-        const bool ok = live[h] && k0 + jj < L.K;
-        const float xr = acc[4 * j + 2 * h];
-        const float xi = acc[4 * j + 2 * h + 1];
-        const float yr =
-            ok ? xr * c_re[h][q][jj] - xi * c_im[h][q][jj] : 0.f;
-        const float yi =
-            ok ? xr * c_im[h][q][jj] + xi * c_re[h][q][jj] : 0.f;
-        __nv_bfloat16 h0, l0, h1, l1;
-        split(yr, h0, l0);
-        split(yi, h1, l1);
-        const __nv_bfloat162 hh = __halves2bfloat162(h0, h1);
-        const __nv_bfloat162 ll = __halves2bfloat162(l0, l1);
-        hi[jj] = *reinterpret_cast<const uint32_t*>(&hh);
-        lo[jj] = *reinterpret_cast<const uint32_t*>(&ll);
+      for (int q = 0; q < kQ; ++q) {
+        const int j = 4 * q;
+        *reinterpret_cast<float4*>(xs + r * kLdx + 16 * q + t4) =
+            make_float4(acc[4 * j + 2 * h], acc[4 * (j + 1) + 2 * h],
+                        acc[4 * (j + 2) + 2 * h], acc[4 * (j + 3) + 2 * h]);
+        *reinterpret_cast<float4*>(xs + r * kLdx + kNb + 16 * q + t4) =
+            make_float4(acc[4 * j + 2 * h + 1], acc[4 * (j + 1) + 2 * h + 1],
+                        acc[4 * (j + 2) + 2 * h + 1],
+                        acc[4 * (j + 3) + 2 * h + 1]);
       }
-      const size_t o = static_cast<size_t>(rows[h]) * ld + 2 * k0;
-      *reinterpret_cast<uint4*>(y_hi + o) =
-          make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      if (kHigh) {
-        *reinterpret_cast<uint4*>(y_lo + o) =
-            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    __syncthreads();
+    const uint64_t policy = evict_first();
+    // Item it: row qh + it / kG of the tile, bins 4 (it % kG) .. + 3.
+    const int items = (kBM - qh) * kG;
+    for (int it0 = tid; it0 < items; it0 += kIt * kThreads) {
+      int r[kIt], k0[kIt];
+      size_t cr[kIt];
+      bool on[kIt], out[kIt];
+#pragma unroll
+      for (int v = 0; v < kIt; ++v) {
+        const int it = it0 + v * kThreads;
+        r[v] = qh + it / kG;
+        k0[v] = n0 / 2 + 4 * (it - (r[v] - qh) * kG);
+        const int row = row0 + r[v];
+        out[v] = it < items && row >= 0 && row < M && 2 * k0[v] < ld;
+        const int b = out[v] ? row / Np : 0;
+        const int m = row - b * Np - qh;
+        on[v] = out[v] && m >= 0 && m <= N && k0[v] < L.K;
+        cr[v] = on[v] ? crow(b, m) + k0[v] : 0;
+      }
+      float yr[kIt][4], yi[kIt][4];
+#pragma unroll
+      for (int v = 0; v < kIt; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yr[v][e] = yi[v][e] = 0.f;
+      for (int j0 = 0; j0 < L.Q; j0 += kJ) {
+        float cr4[kIt][kJ][4], ci4[kIt][kJ][4];
+#pragma unroll
+        for (int v = 0; v < kIt; ++v)
+#pragma unroll
+          for (int jj = 0; jj < kJ; ++jj) {
+            const bool ok = on[v] && j0 + jj < L.Q;
+            const float* p = cre + cr[v] + (j0 + jj) * crs;
+            if (ok && vec) {
+              ld_stream4(cr4[v][jj], p, policy);
+              ld_stream4(ci4[v][jj], p + L.K, policy);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const bool ok_e = ok && k0[v] + e < L.K;
+                cr4[v][jj][e] = ok_e ? __ldg(p + e) : 0.f;
+                ci4[v][jj][e] = ok_e ? __ldg(p + L.K + e) : 0.f;
+              }
+            }
+          }
+#pragma unroll
+        for (int v = 0; v < kIt; ++v)
+#pragma unroll
+          for (int jj = 0; jj < kJ; ++jj) {
+            if (!on[v] || j0 + jj >= L.Q) continue;
+            const float* xr =
+                xs + (r[v] - j0 - jj) * kLdx + (k0[v] - n0 / 2);
+            const float4 x_re = *reinterpret_cast<const float4*>(xr);
+            const float4 x_im = *reinterpret_cast<const float4*>(xr + kNb);
+            const float re[4] = {x_re.x, x_re.y, x_re.z, x_re.w};
+            const float im[4] = {x_im.x, x_im.y, x_im.z, x_im.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              yr[v][e] += re[e] * cr4[v][jj][e] - im[e] * ci4[v][jj][e];
+              yi[v][e] += re[e] * ci4[v][jj][e] + im[e] * cr4[v][jj][e];
+            }
+          }
+      }
+#pragma unroll
+      for (int v = 0; v < kIt; ++v) {
+        if (!out[v]) continue;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          __nv_bfloat16 h0, l0, h1, l1;
+          split(yr[v][e], h0, l0);
+          split(yi[v][e], h1, l1);
+          const __nv_bfloat162 hh = __halves2bfloat162(h0, h1);
+          const __nv_bfloat162 ll = __halves2bfloat162(l0, l1);
+          hi[e] = *reinterpret_cast<const uint32_t*>(&hh);
+          lo[e] = *reinterpret_cast<const uint32_t*>(&ll);
+        }
+        const size_t o =
+            static_cast<size_t>(row0 + r[v]) * ld + 2 * k0[v];
+        *reinterpret_cast<uint4*>(y_hi + o) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        if (kHigh) {
+          *reinterpret_cast<uint4*>(y_lo + o) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= M) continue;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int k0 = n0 / 2 + 16 * q + t4;
+        if (2 * k0 >= ld) continue;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * q + jj;
+          const bool ok = live[h] && k0 + jj < L.K;
+          const float xr = acc[4 * j + 2 * h];
+          const float xi = acc[4 * j + 2 * h + 1];
+          const float yr =
+              ok ? xr * c_re[h][q][jj] - xi * c_im[h][q][jj] : 0.f;
+          const float yi =
+              ok ? xr * c_im[h][q][jj] + xi * c_re[h][q][jj] : 0.f;
+          __nv_bfloat16 h0, l0, h1, l1;
+          split(yr, h0, l0);
+          split(yi, h1, l1);
+          const __nv_bfloat162 hh = __halves2bfloat162(h0, h1);
+          const __nv_bfloat162 ll = __halves2bfloat162(l0, l1);
+          hi[jj] = *reinterpret_cast<const uint32_t*>(&hh);
+          lo[jj] = *reinterpret_cast<const uint32_t*>(&ll);
+        }
+        const size_t o = static_cast<size_t>(rows[h]) * ld + 2 * k0;
+        *reinterpret_cast<uint4*>(y_hi + o) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        if (kHigh) {
+          *reinterpret_cast<uint4*>(y_lo + o) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
       }
     }
   }
@@ -1095,10 +859,11 @@ tc_fwd_kernel(const __nv_bfloat16* __restrict__ st_hi,
 // Stage s, second GEMM: V = Y @ G over a tile of 128 rows (127 frames and
 // a halo row) by kInvN columns (groups of 8: lo (1 - lam) of p0 .. p0 + 7,
 // hi lam of the same p, ...).  The epilogue puts V in shared memory (over
-// the ring) and, per frame m < N and p < P: out = (V[n, lo p] + V[n+1,
-// hi p]) w_s, y += a_s out (y = a_0 x0 + a_1 out at s = 1), the next
-// state (s < S) split into the padded layout (zeros past P).
-template <bool kHigh>
+// the ring) and, per frame 0 <= m < N (row i = m + Q - 1 of its batch row)
+// and p < P: out = (V[i, lo p] + V[i+1, hi p]) w_s, y += a_s out (y = a_0
+// x0 + a_1 out at s = 1), the next state (s < S) split into the padded
+// layout (zeros past P).
+template <bool kHigh, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_inv_kernel(const __nv_bfloat16* __restrict__ y_hi,
               const __nv_bfloat16* __restrict__ y_lo,
@@ -1108,9 +873,10 @@ tc_inv_kernel(const __nv_bfloat16* __restrict__ y_hi,
               __nv_bfloat16* __restrict__ nx_hi,
               __nv_bfloat16* __restrict__ nx_lo,
               const float* __restrict__ w, const float* __restrict__ a,
-              Layout L, int N, int Np, int M, int r0, int S, int s) {
-  constexpr int kBN = Tiles<kHigh>::kInvN;
-  constexpr int kStages = Tiles<kHigh>::kInvStages;
+              const float* __restrict__ cre, Layout L, int N, int Np, int M,
+              int S, int s) {
+  constexpr int kBN = Tiles<kHigh, kChunked>::kInvN;
+  constexpr int kStages = Tiles<kHigh, kChunked>::kInvStages;
   constexpr int kW = kBN / 2;
   constexpr int kLdv = kBN + 4;
   static_assert(kBM * kLdv * 4 <= kStages * Ring<kHigh, kBN, kStages>::kStage,
@@ -1122,6 +888,33 @@ tc_inv_kernel(const __nv_bfloat16* __restrict__ y_hi,
   const int row0 = (blockIdx.x / L.n_ctile) * (kBM - 1);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
+  const int qh = L.Q - 1;
+
+  if constexpr (kChunked) {
+#ifndef MLSA_TC_NO_PREFETCH
+    // Chunked, the next stage's forward epilogue reads the spectra of
+    // these rows' frames (23.6 MB a stage at the flagship) from device
+    // memory; this launch reads little from it, so it moves them into L2
+    // first: one bulk prefetch of a frame's Q x 2K floats (contiguous), the
+    // tile's rows shared among its column tiles.  They are inputs of the
+    // call, ready before the first stage, so this runs before the wait, to
+    // give the copies all of this launch's time (issued after the main
+    // loop, they gained less).
+    const uint32_t bytes = static_cast<uint32_t>(L.Q) * 8 * L.K;
+    if (s < S && bytes % 16 == 0) {
+      for (int r = tn + L.n_ctile * tid; r < kBM - 1;
+           r += L.n_ctile * kThreads) {
+        const int row = row0 + r;
+        if (row >= M) break;
+        const int b = row / Np;
+        const int m = row - b * Np - qh;
+        if (m < 0 || m > N) continue;
+        const size_t frame = static_cast<size_t>(b) * N + (m < N ? m : N - 1);
+        prefetch_l2(cre + frame * L.Q * 2 * L.K, bytes);
+      }
+    }
+#endif
+  }
 
   // The outputs in groups of 4 consecutive p, kItems groups a thread.
   // Each group's y (x0 at s = 1) loads into registers once the ring's
@@ -1138,8 +931,9 @@ tc_inv_kernel(const __nv_bfloat16* __restrict__ y_hi,
     pl = 4 * (item - r * kG);
     const int row = row0 + r;
     b = row / Np;
-    m = row - b * Np;
-    return item < (kBM - 1) * kG && row < M && m < N && tn * kW + pl < L.P;
+    m = row - b * Np - qh;
+    return item < (kBM - 1) * kG && row < M && m >= 0 && m < N &&
+           tn * kW + pl < L.P;
   };
   auto load_prev = [&] {
     const float* src = s == 1 ? x0 : y;
@@ -1214,7 +1008,8 @@ tc_inv_kernel(const __nv_bfloat16* __restrict__ y_hi,
       }
     }
     if (s < S) {
-      const size_t o = (static_cast<size_t>(b) * Np + r0 + m) * L.P8 + p;
+      const size_t o =
+          (static_cast<size_t>(b) * Np + L.pre + m) * L.P8 + p;
       uint32_t h2[2], l2[2];
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
@@ -1243,7 +1038,7 @@ tc_prep_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ s0h,
                __nv_bfloat16* __restrict__ s0l,
                __nv_bfloat16* __restrict__ s1h,
                __nv_bfloat16* __restrict__ s1l, int B, int N, int P, int P8,
-               int Np, int r0, long long total) {
+               int Np, int pre, long long total) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
@@ -1251,7 +1046,7 @@ tc_prep_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ s0h,
     const long long frame = i / P8;
     const int p = static_cast<int>(i - frame * P8);
     const long long b = frame / Np;
-    const int f = static_cast<int>(frame - b * Np) - r0;
+    const int f = static_cast<int>(frame - b * Np) - pre;
     const float v = b < B && f >= 0 && f < N && p < P
                         ? x[(b * N + f) * P + p]
                         : 0.f;
@@ -1266,57 +1061,62 @@ tc_prep_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ s0h,
   }
 }
 
-template <bool kHigh>
+template <bool kHigh, bool kChunked>
 int fwd_smem() {
-  return Ring<kHigh, Tiles<kHigh>::kFwdN, Tiles<kHigh>::kFwdStages>::kBytes;
+  using T = Tiles<kHigh, kChunked>;
+  return Ring<kHigh, T::kFwdN, T::kFwdStages>::kBytes;
 }
 
-template <bool kHigh>
+template <bool kHigh, bool kChunked>
 int inv_smem() {
-  return Ring<kHigh, Tiles<kHigh>::kInvN, Tiles<kHigh>::kInvStages>::kBytes;
+  using T = Tiles<kHigh, kChunked>;
+  return Ring<kHigh, T::kInvN, T::kInvStages>::kBytes;
 }
 
-template <bool kHigh>
+template <bool kHigh, bool kChunked>
 int set_attributes() {
   static int err = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        tc_fwd_kernel<kHigh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        fwd_smem<kHigh>());
+        tc_fwd_kernel<kHigh, kChunked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_smem<kHigh, kChunked>());
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(tc_inv_kernel<kHigh>,
+      e = cudaFuncSetAttribute(tc_inv_kernel<kHigh, kChunked>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               inv_smem<kHigh>());
+                               inv_smem<kHigh, kChunked>());
     }
     return static_cast<int>(e);
   }();
   return err;
 }
 
-// Whether the entry takes a geometry: r0 zero frames before a row and
-// n_blk - 1 - r0 >= 0 after it, frame N's context ending in the next
-// row's pad, the plans within kPlanBudget, indices within int.
-bool takes(const Layout& L, int B, int N, int r0, bool high) {
-  const long long Np = N + L.n_blk - 1;
-  return r0 >= 1 && r0 <= L.n_blk - 1 && plan_bytes(L, high) <= kPlanBudget &&
-         (B * Np + L.n_blk) * L.P8 < (1LL << 31) &&
-         B * Np * 2 * L.Kp < (1LL << 31);
+// Whether an entry takes a geometry: 1 <= Q <= kMaxQ, r0 zero frames of
+// context before a frame at most n_blk - 1 (frame N's context runs one
+// frame into the next row's zeros), the unchunked plans within
+// kPlanBudget, indices within int.
+bool takes(const Layout& L, int B, int N, int r0, bool high, bool chunked) {
+  const Work k = make_work(B, N, L, high);
+  return L.Q >= 1 && L.Q <= kMaxQ && r0 >= 0 && r0 <= L.n_blk - 1 &&
+         (chunked || plan_bytes(L, high) <= kPlanBudget) &&
+         (B * k.Np + L.n_blk) * L.P8 < (1LL << 31) &&
+         B * k.Np * 2 * L.Kp < (1LL << 31);
 }
 
-template <bool kHigh>
+template <bool kHigh, bool kChunked>
 int run(const float* x, const float* cre, const float* cim,
         const __nv_bfloat16* fh, const __nv_bfloat16* fl,
         const __nv_bfloat16* gh, const __nv_bfloat16* gl, const float* w,
         const float* a, unsigned char* work, float* y, int B, int N, int P,
-        int r0, int n_blk, int K, int S, cudaStream_t stream) {
-  const Layout L = make_layout(P, n_blk, K, kHigh);
-  if (!takes(L, B, N, r0, kHigh)) {
+        int Q, int r0, int n_blk, int K, int S, cudaStream_t stream) {
+  const Layout L = make_layout<kHigh, kChunked>(P, Q, r0, n_blk, K);
+  if (!takes(L, B, N, r0, kHigh, kChunked)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int err0 = set_attributes<kHigh>();
+  const int err0 = set_attributes<kHigh, kChunked>();
   if (err0 != 0) return err0;
-  const int Np = N + n_blk - 1;
-  const int M = B * Np;
   const Work k = make_work(B, N, L, kHigh);
+  const int Np = static_cast<int>(k.Np);
+  const int M = B * Np;
   __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(work);
   __nv_bfloat16* st[2][2];
   for (int i = 0; i < 2; ++i) {
@@ -1331,17 +1131,18 @@ int run(const float* x, const float* cre, const float* cim,
   const long long want = (total + 255) / 256;
   tc_prep_kernel<kHigh><<<static_cast<int>(want < 4096 ? want : 4096), 256,
                           0, stream>>>(x, st[0][0], st[0][1], st[1][0],
-                                       st[1][1], B, N, P, L.P8, Np, r0,
+                                       st[1][1], B, N, P, L.P8, Np, L.pre,
                                        total);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
+  const int step = kBM - (Q - 1);
   cudaLaunchConfig_t fwd = {};
-  fwd.gridDim = dim3(((M + kBM - 1) / kBM) * (L.Nf / L.bn_f));
+  fwd.gridDim = dim3(((M + step - 1) / step) * (L.Nf / L.bn_f));
   fwd.blockDim = dim3(kThreads);
-  fwd.dynamicSmemBytes = fwd_smem<kHigh>();
+  fwd.dynamicSmemBytes = fwd_smem<kHigh, kChunked>();
   fwd.stream = stream;
 #ifndef MLSA_TC_NO_PDL
   fwd.attrs = &attr;
@@ -1349,23 +1150,24 @@ int run(const float* x, const float* cre, const float* cim,
 #endif
   cudaLaunchConfig_t inv = fwd;
   inv.gridDim = dim3(((M + kBM - 2) / (kBM - 1)) * L.n_ctile);
-  inv.dynamicSmemBytes = inv_smem<kHigh>();
+  inv.dynamicSmemBytes = inv_smem<kHigh, kChunked>();
   for (int s = 1; s <= S; ++s) {
     __nv_bfloat16* const* src = st[(s - 1) % 2];
     __nv_bfloat16* const* dst = st[s % 2];
-    err = cudaLaunchKernelEx(&fwd, tc_fwd_kernel<kHigh>, src[0], src[1], fh,
-                             fl, cre, cim, yh, yl, L, N, Np, M);
+    err = cudaLaunchKernelEx(&fwd, tc_fwd_kernel<kHigh, kChunked>, src[0],
+                             src[1], fh, fl, cre, cim, yh, yl, L, N, Np, M);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaLaunchKernelEx(&inv, tc_inv_kernel<kHigh>, yh, yl, gh, gl, x,
-                             y, dst[0], dst[1], w, a, L, N, Np, M, r0, S, s);
+    err = cudaLaunchKernelEx(&inv, tc_inv_kernel<kHigh, kChunked>, yh, yl,
+                             gh, gl, x, y, dst[0], dst[1], w, a, cre, L, N,
+                             Np, M, S, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-template <bool kHigh>
+template <bool kHigh, bool kChunked>
 int per_sm(const void* kernel, int bytes) {
-  if (set_attributes<kHigh>() != 0) return 0;
+  if (set_attributes<kHigh, kChunked>() != 0) return 0;
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
                                                     bytes) != cudaSuccess) {
@@ -1374,77 +1176,30 @@ int per_sm(const void* kernel, int bytes) {
   return n;
 }
 
-}  // namespace wg
-}  // namespace
-
-// The unchunked entry's layout of a geometry at one arm, into out[0..13]:
-// P8, kf, Kf, Kp, Nf, forward tile columns, inverse tile columns, w,
-// column tiles of the inverse, Ni, the forward's and the inverse's shared
-// memory bytes, ring stages of each.  Returns the plans' bytes, or -1
-// where the entry refuses the geometry (plans past 24 MB, or r0 outside
-// 1 .. n_blk - 1).
-extern "C" long long mlsa_cascade_tc_unchunked_layout(int P, int r0,
-                                                      int n_blk, int K,
-                                                      int high, int* out) {
-  if (P < 1 || n_blk < 1 || K < 1) return -1;
-  const wg::Layout L = wg::make_layout(P, n_blk, K, high != 0);
-  const int vals[14] = {
-      L.P8, L.kf, L.Kf, L.Kp, L.Nf, L.bn_f, L.bn_i, L.w, L.n_ctile, L.Ni,
-      high ? wg::fwd_smem<true>() : wg::fwd_smem<false>(),
-      high ? wg::inv_smem<true>() : wg::inv_smem<false>(),
-      high ? wg::Tiles<true>::kFwdStages : wg::Tiles<false>::kFwdStages,
-      high ? wg::Tiles<true>::kInvStages : wg::Tiles<false>::kInvStages};
-  for (int i = 0; i < 14; ++i) out[i] = vals[i];
-  if (!wg::takes(L, 1, 1, r0, high != 0)) return -1;
-  return wg::plan_bytes(L, high != 0);
+template <bool kHigh, bool kChunked>
+void occupancy(int* out) {
+  out[0] = per_sm<kHigh, kChunked>(
+      reinterpret_cast<const void*>(tc_fwd_kernel<kHigh, kChunked>),
+      fwd_smem<kHigh, kChunked>());
+  out[1] = per_sm<kHigh, kChunked>(
+      reinterpret_cast<const void*>(tc_inv_kernel<kHigh, kChunked>),
+      inv_smem<kHigh, kChunked>());
 }
 
-// Blocks of the forward and the inverse kernel that fit on one SM at an
-// arm (0 where the query fails), into out[0..1].
-extern "C" int mlsa_cascade_tc_unchunked_occupancy(int high, int* out) {
-  if (high) {
-    out[0] = wg::per_sm<true>(
-        reinterpret_cast<const void*>(wg::tc_fwd_kernel<true>),
-        wg::fwd_smem<true>());
-    out[1] = wg::per_sm<true>(
-        reinterpret_cast<const void*>(wg::tc_inv_kernel<true>),
-        wg::inv_smem<true>());
-  } else {
-    out[0] = wg::per_sm<false>(
-        reinterpret_cast<const void*>(wg::tc_fwd_kernel<false>),
-        wg::fwd_smem<false>());
-    out[1] = wg::per_sm<false>(
-        reinterpret_cast<const void*>(wg::tc_inv_kernel<false>),
-        wg::inv_smem<false>());
-  }
-  return 0;
+template <bool kHigh, bool kChunked>
+void sizes(int* out) {
+  using T = Tiles<kHigh, kChunked>;
+  out[0] = fwd_smem<kHigh, kChunked>();
+  out[1] = inv_smem<kHigh, kChunked>();
+  out[2] = T::kFwdStages;
+  out[3] = T::kInvStages;
 }
 
-// Bytes of the scratch a call at (B, N) takes (the wrapper allocates it),
-// or -1 where the entry refuses the geometry.
-extern "C" long long mlsa_cascade_tc_unchunked_workspace(int B, int N, int P,
-                                                         int r0, int n_blk,
-                                                         int K, int high) {
-  if (B < 1 || N < 1 || P < 1 || n_blk < 1 || K < 1) return -1;
-  const wg::Layout L = wg::make_layout(P, n_blk, K, high != 0);
-  if (!wg::takes(L, B, N, r0, high != 0)) return -1;
-  return wg::make_work(B, N, L, high != 0).bytes;
-}
-
-// Every other geometry (the B3 row): x (B, N, P) float32; the coefficient
-// spectra's real and imaginary parts cre, cim, each (B, N, K) float32 in
-// rows of 2K floats (cim = cre + K: one (B, N, 2K) array, as
-// kernels/mlsa.py:coef_spectrum_cat makes it); the plans f_hi, f_lo
-// (forward, (Kf / 64, Nf, 64)) and g_hi, g_lo (inverse, (2 Kp / 64, Ni,
-// 64)) in the ring's swizzled image (kernels/mlsa.py:tc_unchunked_plans;
-// the lo halves unread unless high); w, a (S+1); work, the scratch of
-// mlsa_cascade_tc_unchunked_workspace's bytes; y (B, N, P).  Enqueues the
-// prologue and two launches a stage; returns the first launch error.
-extern "C" int mlsa_cascade_tc_unchunked_f32(
-    const void* x, const void* cre, const void* cim, const void* f_hi,
-    const void* f_lo, const void* g_hi, const void* g_lo, const void* w,
-    const void* a, void* work, void* y, int B, int N, int P, int r0,
-    int n_blk, int K, int S, int high, void* stream) {
+int launch(const void* x, const void* cre, const void* cim, const void* f_hi,
+           const void* f_lo, const void* g_hi, const void* g_lo,
+           const void* w, const void* a, void* work, void* y, int B, int N,
+           int P, int Q, int r0, int n_blk, int K, int S, int high,
+           bool chunked, void* stream) {
   if (B < 1 || N < 1 || P < 1 || n_blk < 1 || K < 1 || S < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1460,8 +1215,95 @@ extern "C" int mlsa_cascade_tc_unchunked_f32(
   auto* wk = static_cast<unsigned char*>(work);
   auto* yf = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  return high ? wg::run<true>(xf, cr, ci, fh, fl, gh, gl, wf, af, wk, yf, B,
-                              N, P, r0, n_blk, K, S, st)
-              : wg::run<false>(xf, cr, ci, fh, fl, gh, gl, wf, af, wk, yf, B,
-                               N, P, r0, n_blk, K, S, st);
+  if (chunked) {
+    return high ? run<true, true>(xf, cr, ci, fh, fl, gh, gl, wf, af, wk, yf,
+                                  B, N, P, Q, r0, n_blk, K, S, st)
+                : run<false, true>(xf, cr, ci, fh, fl, gh, gl, wf, af, wk,
+                                   yf, B, N, P, Q, r0, n_blk, K, S, st);
+  }
+  return high ? run<true, false>(xf, cr, ci, fh, fl, gh, gl, wf, af, wk, yf,
+                                 B, N, P, 1, r0, n_blk, K, S, st)
+              : run<false, false>(xf, cr, ci, fh, fl, gh, gl, wf, af, wk, yf,
+                                  B, N, P, 1, r0, n_blk, K, S, st);
+}
+
+}  // namespace wg
+}  // namespace
+
+// The layout of a geometry at one arm (high) and entry (chunked), into
+// out[0..15]: P8, kf, Kf, Kp, Nf, forward tile columns, inverse tile
+// columns, w, column tiles of the inverse, Ni, zero frames before and
+// after a batch row, the forward's and the inverse's shared memory bytes,
+// ring stages of each.  Returns the plans' bytes, or -1 where the entry
+// refuses the geometry (see wg::takes).
+extern "C" long long mlsa_cascade_tc_layout(int P, int Q, int r0, int n_blk,
+                                           int K, int high, int chunked,
+                                           int* out) {
+  if (P < 1 || Q < 1 || n_blk < 1 || K < 1) return -1;
+  const wg::Layout L =
+      wg::layout_of(P, Q, r0, n_blk, K, high != 0, chunked != 0);
+  const int vals[12] = {L.P8, L.kf,      L.Kf, L.Kp,    L.Nf,  L.bn_f,
+                        L.bn_i, L.w, L.n_ctile, L.Ni, L.pre, L.after};
+  for (int i = 0; i < 12; ++i) out[i] = vals[i];
+  if (chunked) {
+    high ? wg::sizes<true, true>(out + 12) : wg::sizes<false, true>(out + 12);
+  } else {
+    high ? wg::sizes<true, false>(out + 12)
+         : wg::sizes<false, false>(out + 12);
+  }
+  if (!wg::takes(L, 1, 1, r0, high != 0, chunked != 0)) return -1;
+  return wg::plan_bytes(L, high != 0);
+}
+
+// Blocks of the forward and the inverse kernel that fit on one SM at an
+// arm and entry (0 where the query fails), into out[0..1].
+extern "C" int mlsa_cascade_tc_occupancy(int high, int chunked, int* out) {
+  if (chunked) {
+    high ? wg::occupancy<true, true>(out) : wg::occupancy<false, true>(out);
+  } else {
+    high ? wg::occupancy<true, false>(out) : wg::occupancy<false, false>(out);
+  }
+  return 0;
+}
+
+// Bytes of the scratch a call at (B, N) takes (the wrapper allocates it),
+// or -1 where the entry refuses the geometry.
+extern "C" long long mlsa_cascade_tc_workspace(int B, int N, int P, int Q,
+                                              int r0, int n_blk, int K,
+                                              int high, int chunked) {
+  if (B < 1 || N < 1 || P < 1 || Q < 1 || n_blk < 1 || K < 1) return -1;
+  const wg::Layout L =
+      wg::layout_of(P, Q, r0, n_blk, K, high != 0, chunked != 0);
+  if (!wg::takes(L, B, N, r0, high != 0, chunked != 0)) return -1;
+  return wg::make_work(B, N, L, high != 0).bytes;
+}
+
+// The tap-chunked geometry (the B2 row): x (B, N, P) float32; the
+// coefficient spectra of the Q tap chunks, cre and cim, each (B, N, Q, K)
+// float32 in rows of 2K floats (cim = cre + K: one (B, N, Q, 2K) array, as
+// kernels/mlsa.py:coef_spectrum_cat makes it); the plans f_hi, f_lo
+// (forward, (Kf / 64, Nf, 64)) and g_hi, g_lo (inverse, (2 Kp / 64, Ni,
+// 64)) in the ring's swizzled image (kernels/mlsa.py:tc_plans; the lo
+// halves unread unless high); w, a (S+1); work, the scratch of
+// mlsa_cascade_tc_workspace's bytes; y (B, N, P).  high: 1 for bf16x3
+// (HIGH), 0 for one bf16 pass (DEFAULT).  Enqueues the prologue and two
+// launches a stage; returns the first launch error.
+extern "C" int mlsa_cascade_tc_chunked_f32(
+    const void* x, const void* cre, const void* cim, const void* f_hi,
+    const void* f_lo, const void* g_hi, const void* g_lo, const void* w,
+    const void* a, void* work, void* y, int B, int N, int P, int Q, int r0,
+    int n_blk, int K, int S, int high, void* stream) {
+  return wg::launch(x, cre, cim, f_hi, f_lo, g_hi, g_lo, w, a, work, y, B,
+                    N, P, Q, r0, n_blk, K, S, high, true, stream);
+}
+
+// Every other geometry (the B3 row): as the chunked entry with Q = 1, the
+// spectra (B, N, K) in rows of 2K floats.
+extern "C" int mlsa_cascade_tc_unchunked_f32(
+    const void* x, const void* cre, const void* cim, const void* f_hi,
+    const void* f_lo, const void* g_hi, const void* g_lo, const void* w,
+    const void* a, void* work, void* y, int B, int N, int P, int r0,
+    int n_blk, int K, int S, int high, void* stream) {
+  return wg::launch(x, cre, cim, f_hi, f_lo, g_hi, g_lo, w, a, work, y, B,
+                    N, P, 1, r0, n_blk, K, S, high, false, stream);
 }

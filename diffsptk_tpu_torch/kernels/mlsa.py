@@ -32,7 +32,6 @@ from .mlsa_cascade import (
     cascade_plan,
     chunk_split,
     chunked_geometry,
-    coef_spectrum,
     split_hi_lo,
     taylor_cascade_folded,
 )
@@ -170,46 +169,6 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def fragments(b: torch.Tensor) -> torch.Tensor:
-    """A (K, N) matrix (K a multiple of 16, N of 8) in the order of
-    ``mma.m16n8k16``'s B fragments: (K/16, N/8, 32 lanes, 4).  Lane
-    4 g + t of tile (kt, nt) holds rows 16 kt + 2t + (0, 1, 8, 9) of
-    column 8 nt + g."""
-    K, N = b.shape
-    return b.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(
-        0, 4, 5, 2, 1, 3).contiguous()
-
-
-@functools.lru_cache(maxsize=16)
-def tc_plans(nfft: int, m: int, p: int, advance: int, device):
-    """The tensor-core kernel's plans for a geometry, made once per
-    device: (f_hi, f_lo, g_hi, g_lo, r0, n_blk, K).
-
-    The forward plan is ``cascade_plan``'s Ffwd as one (n_blk P, 2K)
-    matrix, its real and imaginary halves each padded to Kp (K rounded up
-    to 16) columns and its rows to a multiple of 16; the inverse plan
-    stacks the first 2P columns (lo (1 - lam), hi lam) of Ginv_re over
-    Ginv_im's, each padded to Kp rows, its columns to a multiple of 32.
-    Each is rounded to float32 and split exactly into bf16 hi and lo
-    halves (``mlsa_cascade.split_hi_lo``), in fragment order."""
-    Ffwd, Ginv_re, Ginv_im, r0, n_blk = cascade_plan(nfft, m, p, advance)
-    K = nfft // 2 + 1
-    Kp = _round_up(K, 16)
-    f64 = torch.float64
-    fwd = torch.as_tensor(Ffwd, dtype=f64).reshape(n_blk * p, 2 * K)
-    f = torch.zeros(_round_up(n_blk * p, 16), 2 * Kp, dtype=f64)
-    f[:n_blk * p, :K] = fwd[:, :K]
-    f[:n_blk * p, Kp:Kp + K] = fwd[:, K:]
-    g = torch.zeros(2 * Kp, _round_up(2 * p, 32), dtype=f64)
-    g[:K, :2 * p] = torch.as_tensor(Ginv_re[:, :2 * p])
-    g[Kp:Kp + K, :2 * p] = torch.as_tensor(Ginv_im[:, :2 * p])
-    out = []
-    for plan in (f, g):
-        out += [fragments(h.to(torch.bfloat16)).to(device)
-                for h in split_hi_lo(plan.float())]
-    return (*out, r0, n_blk, K)
-
-
 @functools.cache
 def _tc_entry(name: str, defines=()):
     fn = getattr(build.library("mlsa_cascade_tc", defines), name)
@@ -220,34 +179,24 @@ def _tc_entry(name: str, defines=()):
     return fn
 
 
-@functools.cache
-def tc_tile(P: int, Q: int, n_blk: int, K: int, precision: str):
-    """The tensor-core kernel's tile: (frames per block, rows of its
-    products, shared memory bytes, blocks that fit on one SM), or None
-    where no tile fits."""
-    fn = build.library("mlsa_cascade_tc").mlsa_cascade_tc_tile
-    frames, rows, per_sm = (ctypes.c_int(0) for _ in range(3))
-    nbytes = fn(P, Q, n_blk, K, int(precision == "HIGH"),
-                ctypes.byref(frames), ctypes.byref(rows),
-                ctypes.byref(per_sm))
-    return None if nbytes < 0 else (frames.value, rows.value, nbytes,
-                                    per_sm.value)
-
-
-# The unchunked entry's tiles (csrc/mlsa_cascade_tc.cu, namespace wg):
-# rows of a tile, K of a ring stage, and at each arm the columns of the
-# forward and the inverse tile.  The C layout is held equal to
-# tc_unchunked_layout's at a geometry's first call.
+# The tensor-core kernels' tiles (csrc/mlsa_cascade_tc.cu, namespace wg):
+# rows of a tile, K of a ring stage, and at each arm and entry (chunked or
+# not) the columns of the forward and the inverse tile.  The C layout is
+# held equal to tc_layout's at a geometry's first call.
 TC_TILE_ROWS = 128
 TC_BK = 64
-TC_TILE_COLUMNS = {"HIGH": (128, 128), "DEFAULT": (192, 240)}
+TC_TILE_COLUMNS = {("HIGH", False): (128, 128), ("DEFAULT", False): (192, 240),
+                   ("HIGH", True): (128, 80), ("DEFAULT", True): (128, 80)}
 TC_PLAN_BUDGET = 24 << 20
 """Bytes of plans (both products, both halves at HIGH) that the
 unchunked entry takes at most: its row tiles re-read them from L2."""
+TC_MAX_Q = 64
+"""Tap chunks the chunked entry takes at most: a forward tile of
+TC_TILE_ROWS rows yields TC_TILE_ROWS + 1 - Q rows of Y."""
 
 
 class TcLayout(NamedTuple):
-    """The unchunked entry's layout of a geometry at one arm."""
+    """The tensor-core entries' layout of a geometry at one arm."""
 
     P8: int       # a frame's width in the padded state: P rounded up to 8
     kf: int       # the forward contraction, n_blk P8
@@ -259,25 +208,31 @@ class TcLayout(NamedTuple):
     w: int        # frame columns p a tile of the inverse (bn_i / 2)
     n_ctile: int  # column tiles of the inverse
     Ni: int       # inverse plan rows, n_ctile bn_i
+    pre: int      # zero frames before each batch row, Q - 1 + r0
+    after: int    # and after it: n_blk - 1 - r0, one more where pre = 0
 
 
-def tc_unchunked_layout(P: int, r0: int, n_blk: int, K: int,
-                        precision: str):
-    """The unchunked tensor-core entry's layout at frame period P, r0,
-    n_blk and K bins: a :class:`TcLayout`, or None where the entry refuses
-    the geometry (r0 outside 1 .. n_blk - 1, or plans past
-    ``TC_PLAN_BUDGET``)."""
-    bn_f, bn_i = TC_TILE_COLUMNS[precision]
+def tc_layout(P: int, Q: int, r0: int, n_blk: int, K: int, precision: str,
+              chunked: bool = False):
+    """The tensor-core entry's layout at frame period P, Q tap chunks (1
+    for the unchunked entry), r0, n_blk and K bins: a :class:`TcLayout`,
+    or None where the entry refuses the geometry (Q outside 1 ..
+    ``TC_MAX_Q``, r0 outside 0 .. n_blk - 1, or unchunked plans past
+    ``TC_PLAN_BUDGET``).  A batch row holds pre + N + after padded frames;
+    its row i is frame i - (Q - 1)."""
+    bn_f, bn_i = TC_TILE_COLUMNS[precision, chunked]
     P8 = _round_up(P, 8)
     Kp = _round_up(K, 32)
     w = bn_i // 2
     n_ctile = -(-P // w)
+    pre = Q - 1 + r0
     lay = TcLayout(P8, n_blk * P8, _round_up(n_blk * P8, TC_BK), Kp,
                    _round_up(2 * Kp, bn_f), bn_f, bn_i, w, n_ctile,
-                   n_ctile * bn_i)
+                   n_ctile * bn_i, pre, n_blk - 1 - r0 + (pre == 0))
     halves = 2 if precision == "HIGH" else 1
     plans = (lay.Nf * lay.Kf + lay.Ni * 2 * Kp) * 2 * halves
-    if not 1 <= r0 <= n_blk - 1 or plans > TC_PLAN_BUDGET:
+    if (not 1 <= Q <= TC_MAX_Q or not 0 <= r0 <= n_blk - 1
+            or (not chunked and plans > TC_PLAN_BUDGET)):
         return None
     return lay
 
@@ -326,11 +281,12 @@ def inverse_columns(lay: TcLayout, P: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def tc_unchunked_plans(nfft: int, m: int, p: int, advance: int,
-                       precision: str, device):
-    """The unchunked tensor-core entry's plans for a geometry at one arm,
-    made once per device: (f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, layout),
-    or None where the entry refuses the geometry.
+def tc_plans(nfft: int, m: int, p: int, advance: int, precision: str,
+             device, Q: int = 1, chunked: bool = False):
+    """The tensor-core entry's plans for a geometry at one arm, made once
+    per device: (f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, layout), or None
+    where the entry refuses the geometry.  The chunked entry's are those of
+    ``cascade_plan(nfft_c, P - 1, P, advance)``, with Q its tap chunks.
 
     The forward plan, transposed (Nf, Kf): row c holds the part of the
     bin that :func:`forward_bins` gives it, over the context position
@@ -341,7 +297,7 @@ def tc_unchunked_plans(nfft: int, m: int, p: int, advance: int,
     (``mlsa_cascade.split_hi_lo``) and laid out as :func:`swizzle128`."""
     Ffwd, Ginv_re, Ginv_im, r0, n_blk = cascade_plan(nfft, m, p, advance)
     K = nfft // 2 + 1
-    lay = tc_unchunked_layout(p, r0, n_blk, K, precision)
+    lay = tc_layout(p, Q, r0, n_blk, K, precision, chunked)
     if lay is None:
         return None
     f64 = torch.float64
@@ -365,36 +321,38 @@ def tc_unchunked_plans(nfft: int, m: int, p: int, advance: int,
 
 
 @functools.cache
-def _tc_unchunked_c(P: int, r0: int, n_blk: int, K: int, precision: str):
-    """The C side's layout of a geometry (``mlsa_cascade_tc_unchunked_
-    layout``): (the TcLayout fields, shared memory bytes of the forward
-    and the inverse kernel, ring stages of each), or None where it
-    refuses the geometry."""
-    fn = build.library("mlsa_cascade_tc").mlsa_cascade_tc_unchunked_layout
+def _tc_c(P: int, Q: int, r0: int, n_blk: int, K: int, precision: str,
+          chunked: bool):
+    """The C side's layout of a geometry (``mlsa_cascade_tc_layout``): (the
+    TcLayout fields, shared memory bytes of the forward and the inverse
+    kernel, ring stages of each), or None where it refuses the
+    geometry."""
+    fn = build.library("mlsa_cascade_tc").mlsa_cascade_tc_layout
     fn.restype = ctypes.c_longlong
-    out = (ctypes.c_int * 14)()
-    nbytes = fn(P, r0, n_blk, K, int(precision == "HIGH"), out)
+    out = (ctypes.c_int * 16)()
+    nbytes = fn(P, Q, r0, n_blk, K, int(precision == "HIGH"), int(chunked),
+                out)
     return None if nbytes < 0 else tuple(out)
 
 
 @functools.cache
-def tc_unchunked_tile(P: int, r0: int, n_blk: int, K: int, precision: str):
-    """The unchunked entry's tiles at one arm, as its C side reports them:
-    a dict of rows a tile, the forward and inverse tiles' columns, ring
-    stages, shared memory bytes and blocks that fit on one SM, or None
-    where it refuses the geometry."""
-    got = _tc_unchunked_c(P, r0, n_blk, K, precision)
+def tc_tile(P: int, Q: int, r0: int, n_blk: int, K: int, precision: str,
+            chunked: bool = False):
+    """An entry's tiles at one arm, as its C side reports them: a dict of
+    rows a tile, the forward tiles' row step, the forward and inverse
+    tiles' columns, ring stages, shared memory bytes and blocks that fit
+    on one SM, or None where it refuses the geometry."""
+    got = _tc_c(P, Q, r0, n_blk, K, precision, chunked)
     if got is None:
         return None
-    fn = build.library(
-        "mlsa_cascade_tc").mlsa_cascade_tc_unchunked_occupancy
+    fn = build.library("mlsa_cascade_tc").mlsa_cascade_tc_occupancy
     occ = (ctypes.c_int * 2)()
-    fn(int(precision == "HIGH"), occ)
-    lay = TcLayout(*got[:10])
-    return dict(rows=TC_TILE_ROWS, fwd_cols=lay.bn_f, inv_cols=lay.bn_i,
-                fwd_stages=got[12], inv_stages=got[13], fwd_smem=got[10],
-                inv_smem=got[11], fwd_per_sm=occ[0], inv_per_sm=occ[1],
-                layout=lay)
+    fn(int(precision == "HIGH"), int(chunked), occ)
+    lay = TcLayout(*got[:12])
+    return dict(rows=TC_TILE_ROWS, fwd_step=TC_TILE_ROWS + 1 - Q,
+                fwd_cols=lay.bn_f, inv_cols=lay.bn_i, fwd_stages=got[14],
+                inv_stages=got[15], fwd_smem=got[12], inv_smem=got[13],
+                fwd_per_sm=occ[0], inv_per_sm=occ[1], layout=lay)
 
 
 @functools.lru_cache(maxsize=16)
@@ -407,15 +365,14 @@ def _coef_plan_cat(nfft: int, n_taps: int, device):
 
 def coef_spectrum_cat(c: torch.Tensor, nfft: int) -> torch.Tensor:
     """``coef_spectrum``'s re and im in one (..., 2K) array (re at k, im
-    at K + k), by one matmul: what the unchunked tensor-core entry reads.
-    The same sums as coef_spectrum's two matmuls, column for column."""
+    at K + k), by one matmul: what the tensor-core entries read.  The same
+    sums as coef_spectrum's two matmuls, column for column."""
     return torch.matmul(c, _coef_plan_cat(nfft, c.shape[-1], c.device))
 
 
 @functools.cache
 def _tc_workspace_fn():
-    fn = build.library(
-        "mlsa_cascade_tc").mlsa_cascade_tc_unchunked_workspace
+    fn = build.library("mlsa_cascade_tc").mlsa_cascade_tc_workspace
     fn.restype = ctypes.c_longlong
     return fn
 
@@ -423,8 +380,8 @@ def _tc_workspace_fn():
 def _run_tc(x, c, weights, a, P: int, advance: int, nfft: int,
             precision: str, chunked: bool, defines=()):
     """Check the arguments and enqueue the S stages of the tensor-core
-    kernel (built with ``defines``) through its chunked (transform length
-    ``nfft`` = nfft_c) or unchunked entry; returns (y, S)."""
+    kernels (built with ``defines``) through the chunked (transform length
+    ``nfft`` = nfft_c) or the unchunked entry; returns (y, S)."""
     if precision not in ("HIGH", "DEFAULT"):
         raise ValueError('the tensor-core cascade takes "HIGH" or "DEFAULT"')
     (B, N, M, S), w, a = _checked(x, c, weights, a, P)
@@ -432,66 +389,63 @@ def _run_tc(x, c, weights, a, P: int, advance: int, nfft: int,
         return a[0] * x, 0
     with torch.cuda.device(x.device):
         if chunked:
-            cch, Q = chunk_split(c, P)
-            cre, cim = coef_spectrum(cch, nfft)           # (B, N, Q, K)
-            plan = tc_plans(nfft, P - 1, P, advance, x.device)
-            f_hi, f_lo, g_hi, g_lo, r0, n_blk, K = plan
-            if tc_tile(P, Q, n_blk, K, precision) is None:
-                raise ValueError(
-                    f"the tensor-core cascade has no tile for P={P}, Q={Q}, "
-                    f"K={K}")
-            buf = x.new_empty((2,) + x.shape)
-            ints = [B, N, P, Q, r0, n_blk, K]
+            taps, Q = chunk_split(c, P)                  # (B, N, Q, P)
+            m = P - 1
         else:
-            plan = tc_unchunked_plans(nfft, M, P, advance, precision,
-                                      x.device)
-            if plan is None:
-                raise ValueError(
-                    f"the tensor-core cascade has no tile for P={P}, M={M}, "
-                    f"nfft={nfft}: its plans pass {TC_PLAN_BUDGET >> 20} MB "
-                    "or its frames' context starts at or after the frame")
-            f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = plan
-            if _tc_unchunked_c(P, r0, n_blk, K, precision)[:10] != lay:
-                raise RuntimeError(
-                    "mlsa_cascade_tc.cu's unchunked layout differs from "
-                    "tc_unchunked_layout's")
-            cre = coef_spectrum_cat(c, nfft)              # (B, N, 2K)
-            cim = cre[..., K:]
-            nbytes = _tc_workspace_fn()(B, N, P, r0, n_blk, K,
-                                        int(precision == "HIGH"))
-            if nbytes < 0:
-                raise ValueError(
-                    f"the tensor-core cascade has no tile for B={B}, N={N} "
-                    f"at P={P}: its indices pass 2^31")
-            buf = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-            ints = [B, N, P, r0, n_blk, K]
+            taps, Q, m = c, 1, M
+        plan = tc_plans(nfft, m, P, advance, precision, x.device, Q, chunked)
+        if plan is None:
+            raise ValueError(
+                f"the tensor-core cascade has no tile for P={P}, M={M}, "
+                f"Q={Q}, nfft={nfft}: "
+                + ("its Q passes " + str(TC_MAX_Q) if chunked else
+                   f"its plans pass {TC_PLAN_BUDGET >> 20} MB")
+                + " or its frames' context starts after the frame")
+        f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = plan
+        high = int(precision == "HIGH")
+        got = _tc_c(P, Q, r0, n_blk, K, precision, chunked)
+        if got is None or got[:12] != lay:
+            raise RuntimeError(
+                "mlsa_cascade_tc.cu's layout differs from tc_layout's")
+        cre = coef_spectrum_cat(taps, nfft)         # (B, N, [Q,] 2K)
+        cim = cre[..., K:]
+        nbytes = _tc_workspace_fn()(B, N, P, Q, r0, n_blk, K, high,
+                                    int(chunked))
+        if nbytes < 0:
+            raise ValueError(
+                f"the tensor-core cascade has no tile for B={B}, N={N} "
+                f"at P={P}: its indices pass 2^31")
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         x = x.contiguous()
-        if chunked:
-            cre, cim = cre.contiguous(), cim.contiguous()
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [t.data_ptr() for t in (x, cre, cim, f_hi, f_lo, g_hi, g_lo,
                                        w, a, buf, y)]
-        entry = ("mlsa_cascade_tc_chunked_f32" if chunked
-                 else "mlsa_cascade_tc_unchunked_f32")
-        err = _tc_entry(entry, tuple(defines))(
-            *ptrs, *ints, S, int(precision == "HIGH"), stream)
+        if chunked:
+            entry, ints = "mlsa_cascade_tc_chunked_f32", [B, N, P, Q, r0,
+                                                          n_blk, K]
+        else:
+            entry, ints = "mlsa_cascade_tc_unchunked_f32", [B, N, P, r0,
+                                                            n_blk, K]
+        err = _tc_entry(entry, tuple(defines))(*ptrs, *ints, S, high, stream)
     build.check(err, "mlsa_cascade_tc stage")
     return y, S
 
 
 def cascade_chunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
                             weights: torch.Tensor, a: torch.Tensor, P: int,
-                            advance: int, nfft_c: int,
-                            precision: str) -> torch.Tensor:
+                            advance: int, nfft_c: int, precision: str,
+                            _defines=()) -> torch.Tensor:
     """The cascade on the card's tensor cores at "HIGH" or "DEFAULT", at
     the tap-chunked geometry (the B2 row) with chunk transform length
     ``nfft_c``.  x (B, N, P) float32, c (B, N, M+1) float32 ->
-    y (B, N, P).  Raises on what the kernel does not take."""
+    y (B, N, P).  Raises on what the kernel does not take.  ``_defines``
+    as :func:`cascade_unchunked_tc_cuda`'s."""
     global launches_high, launches_default
     if nfft_c < 3 * P:
         raise ValueError(f"nfft_c must be at least 3P = {3 * P}")
-    y, S = _run_tc(x, c, weights, a, P, advance, nfft_c, precision, True)
+    y, S = _run_tc(x, c, weights, a, P, advance, nfft_c, precision, True,
+                   _defines)
     if precision == "HIGH":
         launches_high += S
     else:
@@ -509,7 +463,8 @@ def cascade_unchunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
     y (B, N, P).  Raises on what the kernel does not take.  ``_defines``
     builds the kernel with those macros set: the variants of
     tools/torch_tc_cascade_ab.py (MLSA_TC_NO_PDL launches without
-    programmatic dependence; MLSA_TC_ABLATE_EPILOGUE and
+    programmatic dependence; MLSA_TC_NO_PREFETCH leaves out the chunked
+    inverse's L2 prefetch of the spectra; MLSA_TC_ABLATE_EPILOGUE and
     MLSA_TC_ABLATE_MMA leave out the epilogues or the products, compute
     wrong values and only time what remains)."""
     global launches_high_unchunked, launches_default_unchunked

@@ -595,12 +595,16 @@ def _tc_delta(before):
                                                (2, 40, 16, 39, 4, 0),
                                                (3, 61, 80, 199, 20, 0),
                                                (2, 30, 18, 50, 3, 2),
-                                               (1, 12, 16, 239, 3, 0)])
+                                               (1, 12, 16, 239, 3, 0),
+                                               (32, 240, 80, 199, 20, 0),
+                                               (2, 20, 16, 495, 3, 0)])
 def test_tc_cascade_chunked_matches_twin(cuda, precision, B, N, P, M, S,
                                          advance):
-    """The chunked entry: one tile, ragged tiles, the flagship geometry,
-    P not a multiple of 8 with advance > 0, Q = 15; S launches on the
-    arm's counter and no other."""
+    """The chunked entry: one tile, ragged tiles, three batch rows at the
+    flagship's P and M, P not a multiple of 8 with advance > 0, Q = 15,
+    the flagship itself (7,808 padded frame rows, 62 forward row tiles)
+    and Q = 31 (a forward tile yields 98 rows); S launches on the arm's
+    counter and no other."""
     x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=11)
     nfft_c = lane_aligned_nfft(3 * P)
     before = _tc_counts()
@@ -620,14 +624,16 @@ def test_tc_cascade_chunked_matches_twin(cuda, precision, B, N, P, M, S,
                                                (3, 9, 18, 50, 3, 3),
                                                (2, 40, 80, 79, 5, 0),
                                                (1, 300, 240, 199, 4, 0),
-                                               (3, 61, 80, 79, 3, 1)])
+                                               (3, 61, 80, 79, 3, 1),
+                                               (2, 9, 16, 30, 3, 50)])
 def test_tc_cascade_unchunked_matches_twin(cuda, precision, B, N, P, M, S,
                                            advance):
     """The unchunked entry at [chain48]'s P=240, a padded half spectrum
     (nfft 128, K = 65), P not a multiple of 8, one batch row whose 302
     padded frames are no multiple of the 128-row tile (nor of the inverse
-    tiles' 127), and row tiles that span two batch rows (64 padded frames
-    a row at P = 80, advance 1: n_blk = 4)."""
+    tiles' 127), row tiles that span two batch rows (64 padded frames a
+    row at P = 80, advance 1: n_blk = 4), and r0 = 0 (advance 50 past
+    P + M = 46: no zero frame before a batch row)."""
     x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=12)
     nfft = (lane_aligned_nfft(2 * P + M + 1) if P >= 80
             else 1 << int(np.ceil(np.log2(2 * P + M + 1))))
@@ -642,6 +648,20 @@ def test_tc_cascade_unchunked_matches_twin(cuda, precision, B, N, P, M, S,
                                     precision)
     err = float((y.reshape(B, N * P) - want).abs().max())
     assert err <= TC_BARS[precision] * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
+def test_tc_cascade_chunked_is_deterministic(cuda, precision):
+    """Two calls of the chunked entry at the flagship geometry on the
+    same inputs are equal bit for bit (no atomics, no order that moves)."""
+    B, N, P, M, S = 32, 240, 80, 199, 20
+    x, c, weights, a = _cascade_case(cuda, B, N, P, M, S, seed=18)
+    nfft_c = lane_aligned_nfft(3 * P)
+    ys = [mlsa.cascade_chunked_tc_cuda(x.reshape(B, N, P), c, weights, a, P,
+                                       0, nfft_c, precision)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
 
 
 def test_tc_cascade_entry_dispatch_and_no_fallback(cuda):

@@ -40,6 +40,7 @@ from diffsptk_tpu.ops.mglsadf import PseudoMGLSADigitalFilter as JMLSA
 from diffsptk_tpu_torch.kernels import mlsa
 from diffsptk_tpu_torch.kernels.mlsa_cascade import (
     bf16_round,
+    cascade_plan,
     chunk_split,
     coef_spectrum,
     lane_aligned_nfft,
@@ -153,91 +154,37 @@ def test_plan_splits_match_jax(chunked, nfft, m, p, advance):
                 want[:K, j * 128:j * 128 + p])
 
 
-def _unfragment(fr: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """The inverse of ``mlsa.fragments``."""
-    t = fr.reshape(rows // 16, cols // 8, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2)
-    return t.reshape(rows, cols)
-
-
 def _tc_emulated(x, c, weights, a, P, advance, nfft, precision, chunked):
-    """The tensor-core kernel's stages (csrc/mlsa_cascade_tc.cu) in torch,
-    from the plans as ``mlsa.tc_plans`` lays them out for it: each frame's
-    context as n_blk P consecutive samples (frames -(Q-1) .. N), the Q-term
-    complex products, frame N on C[N-1], the lo / hi blend of V."""
+    """The tensor-core entries (csrc/mlsa_cascade_tc.cu, tc_fwd_kernel /
+    tc_inv_kernel) in torch, from the plans as ``mlsa.tc_plans`` lays them
+    out for them (unswizzled): the padded state (pre = Q - 1 + r0 zero
+    frames before each batch row, ``after`` after it, frames P8 wide; Q = 1
+    unchunked), its context rows (the view at row stride P8: row i of a
+    batch row is frame i - (Q - 1)), the forward tiles of 128 rows stepping
+    by 129 - Q from row 1 - Q (the first Q - 1 rows of a tile its halo)
+    with the bins' re and im side by side (``mlsa.forward_bins``' order),
+    the Q-term complex products of their epilogue on the tile's own rows
+    (frame N on C[N-1]) and Y split, the inverse tiles of 127 frames and a
+    halo row with the lo / hi column groups of 8, and the next state
+    written split by the inverse epilogue."""
     B, T = x.shape
     N, M = c.shape[-2], c.shape[-1] - 1
     if chunked:
-        cch, Q = chunk_split(c, P)
-        cre, cim = coef_spectrum(cch, nfft)
-        plan = mlsa.tc_plans(nfft, P - 1, P, advance, "cpu")
+        taps, Q = chunk_split(c, P)                       # (B, N, Q, P)
+        m = P - 1
     else:
-        Q = 1
-        cre, cim = (s[:, :, None] for s in coef_spectrum(c, nfft))
-        plan = mlsa.tc_plans(nfft, M, P, advance, "cpu")
-    f_hi, f_lo, g_hi, g_lo, r0, n_blk, K = plan
-    Kp = -(-K // 16) * 16
-    Kc1 = -(-n_blk * P // 16) * 16
-    N2 = -(-2 * P // 32) * 32
-    Fh, Fl = (_unfragment(t, Kc1, 2 * Kp).float() for t in (f_hi, f_lo))
-    Gh, Gl = (_unfragment(t, 2 * Kp, N2).float() for t in (g_hi, g_lo))
-
-    def dot(A, Bh, Bl):
-        ah = bf16_round(A)
-        if precision == "DEFAULT":
-            return ah @ Bh
-        al = bf16_round(A - ah)
-        return ah @ Bh + ah @ Bl + al @ Bh
-
-    m = torch.arange(-(Q - 1), N + 1)
-    kk = torch.arange(Kc1)
-    pos = (m[:, None] - r0) * P + kk
-    valid = (kk < n_blk * P) & (pos >= 0) & (pos < T)
-    n_c = torch.arange(N + 1).clamp(max=N - 1)
-    cur, y = x, a[0] * x
-    f32 = dict(dtype=torch.float32)
-    for s in range(1, a.shape[0]):
-        ctx = torch.where(valid, cur[:, pos.clamp(0, T - 1)], 0.0)
-        X = dot(ctx, Fh, Fl)                               # (B, N+Q, 2Kp)
-        Yre = torch.zeros(B, N + 1, Kp, **f32)
-        Yim = torch.zeros(B, N + 1, Kp, **f32)
-        for j in range(Q):
-            rows = torch.arange(N + 1) + Q - 1 - j
-            cr = torch.zeros(B, N + 1, Kp, **f32)
-            ci = torch.zeros(B, N + 1, Kp, **f32)
-            cr[..., :K] = cre[:, n_c, j]
-            ci[..., :K] = cim[:, n_c, j]
-            xr, xi = X[:, rows, :Kp], X[:, rows, Kp:]
-            Yre = Yre + (xr * cr - xi * ci)
-            Yim = Yim + (xr * ci + xi * cr)
-        V = dot(torch.cat([Yre, Yim], -1), Gh, Gl)
-        cur = ((V[:, :N, :P] + V[:, 1:, P:2 * P]) * weights[s]).reshape(B, T)
-        y = y + a[s] * cur
-    return y
-
-
-def _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft, precision):
-    """The unchunked tensor-core entry (csrc/mlsa_cascade_tc.cu,
-    tc_fwd_kernel / tc_inv_kernel) in torch, from the plans as
-    ``mlsa.tc_unchunked_plans`` lays them out for it (unswizzled): the
-    padded state (r0 zero frames before each batch row, n_blk - 1 - r0
-    after it, frames P8 wide), its context rows (the view at row stride
-    P8), the forward tiles of 128 rows with the bins' re and im side by
-    side (``mlsa.forward_bins``' order) and Y split in their epilogue,
-    the inverse tiles of 127 frames and a halo row with the lo / hi
-    column groups of 8, and the next state written split by the inverse
-    epilogue."""
-    B, T = x.shape
-    N, M = c.shape[-2], c.shape[-1] - 1
-    f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = mlsa.tc_unchunked_plans(
-        nfft, M, P, advance, precision, "cpu")
+        taps, Q, m = c[:, :, None], 1, M
+    f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = mlsa.tc_plans(
+        nfft, m, P, advance, precision, "cpu", Q, chunked)
     Fh, Fl = (mlsa.unswizzle128(t).float() for t in (f_hi, f_lo))
     Gh, Gl = (mlsa.unswizzle128(t).float() for t in (g_hi, g_lo))
     high = precision == "HIGH"
     rows = mlsa.TC_TILE_ROWS
-    Np = N + n_blk - 1
+    qh = Q - 1
+    Np = lay.pre + N + lay.after
     Mr = B * Np
     frames = Mr + n_blk
-    cre, cim = coef_spectrum(c, nfft)                     # (B, N, K)
+    cre, cim = coef_spectrum(taps, nfft)                  # (B, N, Q, K)
     f32 = dict(dtype=torch.float32)   # whatever torch's default dtype
 
     def split(v):
@@ -248,49 +195,60 @@ def _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft, precision):
         out = ah @ bh.T
         return out + ah @ bl.T + al @ bh.T if high else out
 
-    def tile(t, r0_, n):
-        """Rows r0_ .. r0_ + n of t, zero past its end (cp.async's fill)."""
-        part = t[r0_:r0_ + n]
-        return torch.cat([part, part.new_zeros(n - part.shape[0],
-                                               part.shape[1])])
+    def tile(t, t0, n):
+        """Rows t0 .. t0 + n of t, zero before 0 and past its end
+        (cp.async's fill)."""
+        idx = torch.arange(t0, t0 + n)
+        ok = (idx >= 0) & (idx < t.shape[0])
+        out = t.new_zeros(n, t.shape[1])
+        out[ok] = t[idx[ok]]
+        return out
 
-    at = (torch.arange(B)[:, None] * Np + r0
-          + torch.arange(N)[None, :]).reshape(-1)        # frame m of row b
+    at = (torch.arange(B)[:, None] * Np + lay.pre
+          + torch.arange(N)[None, :]).reshape(-1)        # frame f of row b
     st = torch.zeros(frames, lay.P8, **f32)
     st[at, :P] = x.reshape(B * N, P)
     sh, sl = split(st)
     row = torch.arange(Mr)
-    b_of, m_of = row // Np, row % Np
-    nc = m_of.clamp(max=N - 1)
-    live = (m_of <= N)[:, None]
+    b_of, m_of = row // Np, row % Np - qh
+    nc = m_of.clamp(0, N - 1)
+    live = ((m_of >= 0) & (m_of <= N))[:, None]
+    kb, part = mlsa.forward_bins(lay)
     pl = torch.arange(lay.w)
     col = 16 * (pl // 8) + pl % 8                         # lo of p; hi +8
     y = a[0] * x.reshape(B, N, P)
     for s in range(1, a.shape[0]):
         ctx = [F.pad(t.reshape(-1).unfold(0, lay.kf, lay.P8)[:Mr],
                      (0, lay.Kf - lay.kf)) for t in (sh, sl)]
-        X = torch.cat([gemm(tile(ctx[0], t0, rows), tile(ctx[1], t0, rows),
-                            Fh, Fl) for t0 in range(0, Mr, rows)])[:Mr]
-        xr = torch.zeros(Mr, K, **f32)
-        xi = torch.zeros(Mr, K, **f32)
-        kb, part = mlsa.forward_bins(lay)
-        for e, part_x in ((0, xr), (1, xi)):
-            sel = (part == e) & (kb < K)
-            part_x[:, kb[sel]] = X[:, sel]
-        cr, ci = cre[b_of, nc], cim[b_of, nc]
         Y = torch.zeros(Mr, 2 * lay.Kp, **f32)
-        Y[:, 0:2 * K:2] = torch.where(live, xr * cr - xi * ci, 0.0)
-        Y[:, 1:2 * K:2] = torch.where(live, xr * ci + xi * cr, 0.0)
+        for t0 in range(-qh, Mr - qh, rows - qh):
+            X = gemm(tile(ctx[0], t0, rows), tile(ctx[1], t0, rows), Fh, Fl)
+            xr = torch.zeros(rows, K, **f32)
+            xi = torch.zeros(rows, K, **f32)
+            for e, part_x in ((0, xr), (1, xi)):
+                sel = (part == e) & (kb < K)
+                part_x[:, kb[sel]] = X[:, sel]
+            r = torch.arange(qh, rows)
+            r = r[t0 + r < Mr]
+            ri = t0 + r
+            yre = torch.zeros(len(r), K, **f32)
+            yim = torch.zeros(len(r), K, **f32)
+            for j in range(Q):
+                cr, ci = cre[b_of[ri], nc[ri], j], cim[b_of[ri], nc[ri], j]
+                ar, ai = xr[r - j], xi[r - j]
+                yre = yre + (ar * cr - ai * ci)
+                yim = yim + (ar * ci + ai * cr)
+            Y[ri, 0:2 * K:2] = torch.where(live[ri], yre, 0.0)
+            Y[ri, 1:2 * K:2] = torch.where(live[ri], yim, 0.0)
         yh, yl = split(Y)
         out = torch.zeros(B, N, P, **f32)
         nxt = torch.zeros(frames, lay.P8, **f32)
         for t0 in range(0, Mr, rows - 1):
             V = gemm(tile(yh, t0, rows), tile(yl, t0, rows), Gh, Gl)
-            r = torch.arange(rows - 1)
-            keep = (t0 + r < Mr)
-            rr = r[keep]
+            rr = torch.arange(rows - 1)
+            rr = rr[t0 + rr < Mr]
             ri = t0 + rr
-            ok = m_of[ri] < N
+            ok = (m_of[ri] >= 0) & (m_of[ri] < N)
             rr, ri = rr[ok], ri[ok]
             for j in range(lay.n_ctile):
                 p = j * lay.w + pl
@@ -298,7 +256,8 @@ def _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft, precision):
                 cj = j * lay.bn_i + col[pk]
                 val = (V[rr][:, cj] + V[rr + 1][:, cj + 8]) * weights[s]
                 out[b_of[ri][:, None], m_of[ri][:, None], p[pk]] = val
-                nxt[(b_of[ri] * Np + r0 + m_of[ri])[:, None], p[pk]] = val
+                nxt[(b_of[ri] * Np + lay.pre + m_of[ri])[:, None],
+                    p[pk]] = val
         y = y + a[s] * out
         sh, sl = split(nxt)
     return y.reshape(B, T)
@@ -307,28 +266,31 @@ def _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft, precision):
 @pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
 @pytest.mark.parametrize("chunked,B,N,P,M,S,advance", [
     (True, 2, 7, 16, 39, 4, 0), (True, 2, 6, 12, 50, 3, 2),
-    (False, 1, 5, 16, 30, 3, 5), (False, 2, 4, 40, 79, 3, 0)])
+    (False, 1, 5, 16, 30, 3, 5), (False, 2, 4, 40, 79, 3, 0),
+    (True, 4, 100, 80, 199, 3, 0), (True, 2, 12, 16, 239, 3, 0),
+    (False, 2, 5, 16, 30, 3, 50)])
 def test_kernel_plans_and_indexing_reproduce_the_twin(
         precision, chunked, B, N, P, M, S, advance):
     """The layout each entry reads reproduces the twin in the same
-    arithmetic: the chunked entry's (tc_plans in fragment order, padded to
-    its tiles; its context rows and its edge frame), the unchunked entry's
-    (``_tc_unchunked_emulated``); within 1e-5 of max|y| at HIGH; at
-    DEFAULT, where a value one fp32 step apart may round to another bf16,
-    within 3e-3 (readings 1e-4 to 1.3e-3)."""
+    arithmetic (``_tc_emulated``): the chunked entry's at Q = 3 (one and
+    two batch rows a forward tile at P = 16 and 12; the flagship's P = 80,
+    M = 199 with four row tiles across four batch rows) and Q = 15, the
+    unchunked entry's (also at r0 = 0, an advance past P + M: no zero
+    frame before a batch row, one more after it); within 1e-5 of max|y| at
+    HIGH; at DEFAULT, where a
+    value one fp32 step apart may round to another bf16, within 3e-3
+    (readings 1e-4 to 1.3e-3)."""
     x, c, weights, a = _t(*_case(B, N, P, M, S))
     if chunked:
         nfft = lane_aligned_nfft(3 * P)
         want = taylor_cascade_chunked(x, c, weights, a, P, advance, nfft,
                                       precision)
-        got = _tc_emulated(x, c, weights, a, P, advance, nfft, precision,
-                           chunked)
     else:
         nfft = lane_aligned_nfft(2 * P + M + 1)
         want = taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft,
                                         precision)
-        got = _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft,
-                                     precision)
+    got = _tc_emulated(x, c, weights, a, P, advance, nfft, precision,
+                       chunked)
     assert _rel(got, want) <= (1e-5 if precision == "HIGH" else 3e-3)
 
 
@@ -351,8 +313,8 @@ def test_unchunked_layout_reproduces_the_twin(precision, B, N, P, M, S,
             else 1 << int(np.ceil(np.log2(2 * P + M + 1))))
     want = taylor_cascade_unchunked(x, c, weights, a, P, advance, nfft,
                                     precision)
-    got = _tc_unchunked_emulated(x, c, weights, a, P, advance, nfft,
-                                 precision)
+    got = _tc_emulated(x, c, weights, a, P, advance, nfft, precision,
+                       False)
     assert _rel(got, want) <= (2e-5 if precision == "HIGH" else 3e-3)
 
 
@@ -363,7 +325,7 @@ def test_unchunked_plans_hold_the_folded_plans():
     inverse's rows Ginv's columns of inverse_columns, zeros elsewhere;
     swizzle128 is a permutation of each row's 16-byte chunks."""
     nfft, m, p, advance = 128, 50, 18, 3
-    f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = mlsa.tc_unchunked_plans(
+    f_hi, f_lo, g_hi, g_lo, r0, n_blk, K, lay = mlsa.tc_plans(
         nfft, m, p, advance, "HIGH", "cpu")
     fwd, (gre_h, gre_l), (gim_h, gim_l), r0_, n_blk_ = split_plans(
         nfft, m, p, advance, "cpu")
@@ -392,6 +354,72 @@ def test_unchunked_plans_hold_the_folded_plans():
     img = mlsa.swizzle128(t)
     assert torch.equal(mlsa.unswizzle128(img), t)
     assert torch.equal(img[0, 3, 8:16], t[3, 16:24])   # chunk 2 of row 3
+
+
+def _chunked_geometry_of(P, advance):
+    """r0, n_blk and K of the chunked entry's plan at frame period P:
+    ``cascade_plan(lane_aligned_nfft(3P), P - 1, P, advance)``'s, by its
+    arithmetic alone (the plans themselves are not built)."""
+    K = lane_aligned_nfft(3 * P) // 2 + 1
+    padl = 2 * P - 1 - advance
+    r0 = -(-padl // P)
+    n_blk = -(-(r0 * P - padl + 3 * P - 1) // P)
+    return r0, n_blk, K
+
+
+def _parent_rows(P, Q, r0, n_blk, K, high):
+    """The rows a block of the chunked entry's mma.sync kernel (the parent
+    of the wgmma design) took at a geometry, 0 where it refused it: its
+    run_cascade's check r0 >= 0, then its choose_rows and smem_bytes,
+    written out.  A block of 32 rows, else 16, needed rows - Q >= 1 frames
+    and its bf16 operand rows (hi, and lo at HIGH; lda bf16 a row) and
+    fp32 X rows (ldx floats a row) within the 232,448 bytes of shared
+    memory a block may use."""
+    def up(v, m):
+        return -(-v // m) * m
+    if r0 < 0:
+        return 0
+    kc1, kp, n2 = up(n_blk * P, 16), up(K, 16), up(2 * P, 32)
+    lda = max(kc1, 2 * kp) + 8
+    ldx = max(2 * kp, n2) + 4
+    for rows in (32, 16):
+        smem = (2 if high else 1) * rows * lda * 2 + rows * ldx * 4
+        if rows - Q >= 1 and smem <= 232448:
+            return rows
+    return 0
+
+
+def test_chunked_entry_takes_every_geometry_the_parent_took():
+    """Every (P, Q) of P in 1 .. 800 (the parent took P up to 767) and Q in
+    2 .. 31, at advance 0 and 3, that the parent's rule took at an arm has
+    a layout under the new entry (``mlsa.tc_layout``), whose tile walk
+    covers every row; the new entry also takes Q up to ``TC_MAX_Q``.  The
+    geometry's arithmetic agrees with ``cascade_plan`` where it is cheap to
+    build."""
+    for P, advance in ((1, 0), (16, 5), (80, 0), (81, 3)):
+        plan = cascade_plan(lane_aligned_nfft(3 * P), P - 1, P, advance)
+        assert _chunked_geometry_of(P, advance) == (
+            plan[3], plan[4], lane_aligned_nfft(3 * P) // 2 + 1)
+    taken = 0
+    for advance in (0, 3):
+        for P in range(1, 801):
+            r0, n_blk, K = _chunked_geometry_of(P, advance)
+            for precision in ("HIGH", "DEFAULT"):
+                for Q in range(2, 32):
+                    if not _parent_rows(P, Q, r0, n_blk, K,
+                                        precision == "HIGH"):
+                        continue
+                    taken += 1
+                    lay = mlsa.tc_layout(P, Q, r0, n_blk, K, precision,
+                                         True)
+                    assert lay is not None, (P, Q, advance, precision)
+                    assert lay.pre == Q - 1 + r0 >= 1
+                    # frame N's context ends in the next row's zeros
+                    assert lay.after >= 0 and lay.pre + lay.after >= 1
+    assert taken > 40000
+    assert mlsa.tc_layout(80, mlsa.TC_MAX_Q, 2, 3, 128, "HIGH", True)
+    assert mlsa.tc_layout(80, mlsa.TC_MAX_Q + 1, 2, 3, 128, "HIGH",
+                          True) is None
 
 
 @pytest.mark.parametrize("P,M,advance", [(16, 39, 0), (16, 30, 5),
