@@ -195,7 +195,21 @@ Phases (each prints one line; any failure exits non-zero):
                (1, n) mesh, each class's unshard against one card at the
                same bars (the GMM also fitted in float64 on both sides);
                with one card, a line that says it did not run;
- 39. train-pitch -- the training paths (tools/torch_train_fcnf0.py,
+ 39. sharded-train -- the JAX package's multi-chip training step
+               (parallel/train.py, DryrunStep: the STFT with a learnable
+               window, the MLSA synthesis with both halos, WORLD, the
+               all-pole filter, the MDCT and PQMF round trips) through
+               NCCL at world size 1, B=32, T=19,200, float32: 3 warm-up
+               and 10 timed steps (median and p90 ms, busy share, peak
+               memory), B6 4, B7 1 and threefry 2 launches a step, no
+               host read, a split by term (forward, backward); the
+               kernel path against twins() (loss, the gradients of
+               window, mc and lpc) and rows 0-1 of mc's and lpc's
+               gradients against a float64 CPU step, SHARDED_TRAIN_BARS;
+               with two cards or more, n NCCL ranks on the dryrun's mesh
+               against one card (else a line that says it did not run);
+               then entry.dryrun_multichip(1) and its line;
+ 40. train-pitch -- the training paths (tools/torch_train_fcnf0.py,
                tools/torch_train_crepe_tiny.py) at their default batches:
                FCNF0 40 steps from init on the device corpus (the
                threefry kernel, 17 launches a step) and 10 resumed from
@@ -206,7 +220,7 @@ Phases (each prints one line; any failure exits non-zero):
                within CORPUS32_BARS of float64; one step's gradients
                against the CPU twin's float64; the checkpoint through
                PitchExtractionByFCNF0 on the card, a finite f0;
- 40. precision -- the cascade's reduced-precision arms, "HIGH" (bf16x3)
+ 41. precision -- the cascade's reduced-precision arms, "HIGH" (bf16x3)
                and "DEFAULT" (one bf16 pass), on the tensor-core kernel
                (csrc/mlsa_cascade_tc.cu): each entry and arm at full width
                (chunked at the flagship's geometry, unchunked at P=240)
@@ -223,7 +237,7 @@ Phases (each prints one line; any failure exits non-zero):
                fp32 kernel path), its synthesize at DEFAULT (20), the 48
                kHz vocoder at HIGH (unchunked HIGH 50) and its synthesize
                at DEFAULT (25);
- 41. examples -- examples/torch_analysis_synthesis.py, torch_neural_pitch.py
+ 42. examples -- examples/torch_analysis_synthesis.py, torch_neural_pitch.py
                and torch_world_vocoder.py once each on the card;
 then one JSON line of per-kernel numbers, nvidia-smi's line, and the
 result line.  Every time is CUDA-event time on this card.
@@ -1702,9 +1716,9 @@ def check_threefry(torch, sites, card: str) -> dict:
 
 class NoiseTape:
     """Records the random draws of a WORLD call (the windowed waveform's
-    dither and the synthesis's slot noise) and replays row 0 of each, as
-    float64 on the CPU, in the same order: a float64 CPU run of one row
-    then sees the card's noise."""
+    dither and the synthesis's slot noise) and replays the first ``rows``
+    (row 0 by default) of each, as float64 on the CPU, in the same order:
+    a float64 CPU run of those rows then sees the recorded noise."""
 
     def __init__(self, torch, wc, synth):
         self.torch, self.wc, self.synth, self.tape = torch, wc, synth, []
@@ -1724,13 +1738,13 @@ class NoiseTape:
         return lambda: (setattr(self.wc, "dither_noise", dither),
                         delattr(self.synth, "_slot_noise"))
 
-    def replay(self, synth64):
+    def replay(self, synth64, rows: int = 1):
         dither = self.wc.dither_noise
         tape = iter(self.tape)
 
         def play(*args, **kwargs):
-            return next(tape)[:1].to(device="cpu",
-                                     dtype=self.torch.float64)
+            return next(tape)[:rows].to(device="cpu",
+                                        dtype=self.torch.float64)
 
         self.wc.dither_noise = play
         synth64._slot_noise = play
@@ -4352,55 +4366,44 @@ SHARDED_MULTI = ("vocoder", "world", "poledf", "pqmf", "mdct", "icqt",
                  "gmm")
 
 
-def sharded_multi_rank(rank: int, world: int, store_path: str, backend: str,
-                       device: str, inputs: dict, names: tuple, out) -> None:
-    """One rank of [sharded-multi]: its blocks of ``inputs`` (numpy,
-    ``sharded_inputs``'s) through the sharded classes ``names`` on a
-    (1, world) mesh, the GMM's rows spread over its time axis (and its fit
-    again in float64, ``gmm64``), gathered back with ``unshard``; rank 0
-    puts the results (numpy) on ``out``."""
-    import datetime
-
+def sharded_multi_rank(rank: int, world: int, device: str, inputs: dict,
+                       names: tuple) -> dict:
+    """One rank of [sharded-multi] (``spawn_ranks``' worker): its blocks
+    of ``inputs`` (numpy, ``sharded_inputs``'s) through the sharded classes
+    ``names`` on a (1, world) mesh, the GMM's rows spread over its time
+    axis (and its fit again in float64, ``gmm64``), gathered back with
+    ``unshard``: the results (numpy)."""
     import torch
-    import torch.distributed as dist
 
     from diffsptk_tpu_torch.parallel import make_mesh, shard, unshard
 
     dev = torch.device(device, rank) if device == "cuda" else "cpu"
     if device == "cuda":
-        torch.cuda.set_device(dev)
         # full fp32, as main() sets it for the one-card run
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group(
-        backend, store=dist.FileStore(store_path, world), rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=120))
-    try:
-        mesh = make_mesh((1, world), device_type=device)
-        local = {}
-        for k, v in inputs.items():
-            t = torch.as_tensor(v, device=dev)
-            time_dim, tail = SHARDED_LAYOUT[k]
-            local[k] = (shard(t, mesh, time_dim=None, batch_dim=0,
-                              batch_axis_name="tp") if k == "joint"
-                        else shard(t, mesh, time_dim=time_dim, tail=tail))
-        pairs = sharded_cases(torch, mesh, local, dev, torch.float32,
-                              rows_axis="tp")
-        if "gmm" in names:
-            pairs["gmm64"] = sharded_gmm(torch, mesh, local["joint"], dev,
-                                         torch.float64, rows_axis="tp")
-        res = {}
-        with torch.no_grad():
-            for name in names + ("gmm64",) * ("gmm" in names):
-                y = pairs[name][0]()
-                dim = SHARDED_OUT_DIM.get(name, -1)
-                res[name] = ([v.cpu().numpy() for v in y] if dim is None
-                             else unshard(y, mesh, time_dim=dim
-                                          ).cpu().numpy())
-        if rank == 0:
-            out.put(res)
-    finally:
-        dist.destroy_process_group()
+    mesh = make_mesh((1, world), device_type=device)
+    local = {}
+    for k, v in inputs.items():
+        t = torch.as_tensor(v, device=dev)
+        time_dim, tail = SHARDED_LAYOUT[k]
+        local[k] = (shard(t, mesh, time_dim=None, batch_dim=0,
+                          batch_axis_name="tp") if k == "joint"
+                    else shard(t, mesh, time_dim=time_dim, tail=tail))
+    pairs = sharded_cases(torch, mesh, local, dev, torch.float32,
+                          rows_axis="tp")
+    if "gmm" in names:
+        pairs["gmm64"] = sharded_gmm(torch, mesh, local["joint"], dev,
+                                     torch.float64, rows_axis="tp")
+    res = {}
+    with torch.no_grad():
+        for name in names + ("gmm64",) * ("gmm" in names):
+            y = pairs[name][0]()
+            dim = SHARDED_OUT_DIM.get(name, -1)
+            res[name] = ([v.cpu().numpy() for v in y] if dim is None
+                         else unshard(y, mesh, time_dim=dim
+                                      ).cpu().numpy())
+    return res
 
 
 def gmm_leaves(torch, got, want) -> list:
@@ -4421,14 +4424,11 @@ def run_sharded_multi(torch, xw, xb, joint, card: str, device="cuda",
     card).  ``device="cpu"`` and ``world`` run it on gloo ranks instead
     (tests)."""
     import datetime
-    import multiprocessing
-    import os
-    import queue
-    import tempfile
 
     import torch.distributed as dist
 
     from diffsptk_tpu_torch.parallel import make_mesh
+    from diffsptk_tpu_torch.parallel.ranks import spawn_ranks
 
     n = torch.cuda.device_count() if world is None else world
     if n < 2:
@@ -4439,33 +4439,7 @@ def run_sharded_multi(torch, xw, xb, joint, card: str, device="cuda",
     inputs = {k: v.cpu().numpy() for k, v in sharded_inputs(
         torch, xw, xb, joint, device, torch.float32).items()
         if k in ("xw", "xb", "joint", "a", "e", "cq")}
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    with tempfile.TemporaryDirectory() as d:
-        procs = [ctx.Process(target=sharded_multi_rank,
-                             args=(r, n, os.path.join(d, "store"), backend,
-                                   device, inputs, names, out))
-                 for r in range(n)]
-        for p in procs:
-            p.start()
-        got, deadline = None, time.time() + 600
-        try:
-            # wait for rank 0's result, but not for ranks that died
-            while got is None and time.time() < deadline and not any(
-                    p.exitcode not in (None, 0) for p in procs):
-                try:
-                    got = out.get(timeout=5)
-                except queue.Empty:
-                    pass
-        finally:
-            for p in procs:
-                p.join(timeout=60 if got is not None else 5)
-                if p.is_alive():
-                    p.terminate()
-                    p.join(timeout=10)
-    check(got is not None and all(p.exitcode == 0 for p in procs),
-          f"[sharded-multi] ranks exited with {[p.exitcode for p in procs]}"
-          f"{'' if got is not None else ', no result from rank 0'}")
+    got = spawn_ranks(sharded_multi_rank, n, device, inputs, names)
     dist.init_process_group(
         backend, store=dist.HashStore(), rank=0, world_size=1,
         timeout=datetime.timedelta(seconds=120))
@@ -4510,6 +4484,320 @@ def run_sharded_multi(torch, xw, xb, joint, card: str, device="cuda",
         check(err <= SHARDED_BARS[name],
               f"[sharded-multi] {name}: {err:.3e} from one card (bar "
               f"{SHARDED_BARS[name]})")
+    return errs
+
+
+# [sharded-train]: the JAX package's multi-chip training step
+# (diffsptk_tpu_torch/parallel/train.py) at the flagship's full width
+SHARDED_TRAIN_B, SHARDED_TRAIN_T = 32, 19200
+SHARDED_TRAIN_WARM, SHARDED_TRAIN_STEPS = 3, 10
+# launches a step: WORLD's round trip (no other term reaches a kernel, and
+# WORLD has no parameter, so no backward)
+SHARDED_TRAIN_LAUNCHES = SHARDED_LAUNCHES["world"]
+# ten times the CPU float32 step's distance from float64, relative to
+# max|want| (`python3 tools/torch_sharded_train_bars.py`: rows 0-1 of the
+# step's input with stable_lpc's coefficients, the float64 WORLD replaying
+# the float32 noise, read loss 6.173e-8, window 1.772e-7, mc 7.914e-7, lpc
+# 7.909e-7 and the WORLD term 8.191e-4); the bars of the kernel path
+# against the twins, of rows 0-1 against float64, and of n cards against
+# one.  The WORLD term has a bar of its own: it is about 1e-4 of the
+# loss, so the loss's bar alone would pass a fault in its kernels
+SHARDED_TRAIN_BARS = {"loss": 1.2e-6, "window": 1.8e-6, "mc": 7.9e-6,
+                      "lpc": 7.9e-6, "world": 8.2e-3}
+
+
+def stable_lpc(B: int, N: int, order: int = 24, seed: int = 5
+               ) -> np.ndarray:
+    """LPC frames [1, a_1 .. a_M] (B, N, M+1) with sum |a_k| <= 0.3, so
+    the all-pole filter is stable at every interpolated sample: the lpc
+    of [sharded-train]'s checks (the dryrun's [1, 0, ...] makes the
+    filter the identity and lpc's gradient zero)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (B, N, order)) * (0.3 / order)
+    return np.concatenate([np.ones((B, N, 1)), a], -1)
+
+
+def train_pytree(step, inputs: dict, stable: bool) -> dict:
+    """The JAX step's params pytree (numpy) for ``inputs``
+    (``dryrun_inputs``): the STFT's initial window, the dryrun's mc, and
+    its lpc or, with ``stable``, ``stable_lpc``'s."""
+    lpc = inputs["lpc"]
+    if stable:
+        lpc = stable_lpc(*lpc.shape[:2]).astype(lpc.dtype)
+    return {"window": {"window": step.window_init()}, "mc": inputs["mc"],
+            "lpc": lpc}
+
+
+def train_grads(step, params: dict, x, target) -> dict:
+    """One backward of the step from the pytree ``params``: the loss and
+    its WORLD term, each summed over the mesh, and the gradients of
+    window, mc and lpc (this rank's blocks of mc and lpc).  WORLD is held
+    apart: it is the one term that reaches a kernel, about 1e-4 of the
+    loss, and no gradient passes through it."""
+    from diffsptk_tpu_torch.parallel.mesh import mesh_sum
+
+    p = step.params_from_jax(params)
+    loss, terms, g = step.loss_and_grads(p, x, target)
+    return {"loss": mesh_sum(loss, step.mesh),
+            "world": mesh_sum(terms["world"], step.mesh),
+            "window": g["window"]["window"], "mc": g["mc"], "lpc": g["lpc"]}
+
+
+def train_errs(torch, got: dict, want: dict, scale: float = 1.0) -> dict:
+    """Each of ``SHARDED_TRAIN_BARS``' leaves of ``got`` against
+    ``scale`` times ``want``'s (``rel_to_max``, on the CPU in float64)."""
+    return {k: rel_to_max(torch, torch.as_tensor(got[k]).cpu().double(),
+                          scale * torch.as_tensor(want[k]).cpu().double())
+            for k in SHARDED_TRAIN_BARS if k in want}
+
+
+def train_term_split(torch, step, p, x, target, calls: int = 5) -> dict:
+    """CUDA-event ms of each loss term's forward and of its backward
+    (medians of ``calls`` after one warm call), then of the window's
+    reduction and the SGD update (``DryrunStep.update``): {name:
+    (forward, backward)}."""
+    from diffsptk_tpu_torch.parallel.train import TERMS
+
+    def timed(fn):
+        ms = []
+        for _ in range(calls + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            value = fn()
+            ev[1].record()
+            if isinstance(value, torch.Tensor) and value.requires_grad:
+                value.backward()
+            ev[2].record()
+            torch.cuda.synchronize()
+            ms.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        return tuple(float(np.median([m[i] for m in ms[1:]]))
+                     for i in (0, 1))
+
+    split = {name: timed(lambda name=name: step.term(name, p, x, target))
+             for name in TERMS}
+
+    # train_step's, on the gradients at hand
+    split["reduce+update"] = timed(lambda: step.update(p))
+    for t in (p["window"]["window"], p["mc"], p["lpc"]):
+        t.grad = None
+    return split
+
+
+def run_sharded_train(torch, card: str) -> None:
+    """[sharded-train]: ``DryrunStep`` (the JAX package's multi-chip
+    training step) through an NCCL process group of world size 1 on a
+    (1, 1) mesh at B = 32, T = 19,200, float32: SHARDED_TRAIN_WARM steps,
+    then SHARDED_TRAIN_STEPS timed ones (CUDA events; median and p90 ms a
+    step), the busy share, peak memory, each kernel's launches a step
+    (SHARDED_TRAIN_LAUNCHES) and the host reads (none); the split by term,
+    forward and backward; then, from stable_lpc's coefficients, the kernel
+    path against ``twins()`` (the loss, its WORLD term, the one that
+    reaches the kernels, and the gradients of window, mc and lpc) and
+    rows 0-1 of mc's and lpc's gradients against a float64 CPU
+    step on those rows, times 2/32 (every term's count is proportional to
+    B), all within SHARDED_TRAIN_BARS.  Then [sharded-train]'s n-card
+    check (``run_sharded_train_multi``) and ``dryrun_multichip(1)``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from diffsptk_tpu_torch import twins
+    from diffsptk_tpu_torch.entry import dryrun_multichip
+    from diffsptk_tpu_torch.parallel import make_mesh
+    from diffsptk_tpu_torch.parallel.train import DryrunStep, dryrun_inputs
+
+    B, T, steps = SHARDED_TRAIN_B, SHARDED_TRAIN_T, SHARDED_TRAIN_STEPS
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, 1))
+        step = DryrunStep(mesh, device="cuda", dtype=torch.float32)
+        inputs = dryrun_inputs(B, T, np.float32)
+        x, target = step.blocks(inputs)
+        p = step.params_from_jax(train_pytree(step, inputs, False))
+        for _ in range(SHARDED_TRAIN_WARM):
+            _, p = step.train_step(p, x, target)
+        counters = sharded_counters()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(steps)]
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in counters.values():
+            mod.launches = 0
+        with HostReads(torch, "cuda") as reads:
+            for start, stop in events:
+                start.record()
+                loss, p = step.train_step(p, x, target)
+                stop.record()
+                losses.append(loss)
+        torch.cuda.synchronize()
+        totals = {k: mod.launches for k, mod in counters.items()
+                  if mod.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = [a.elapsed_time(b) for a, b in events]
+        losses = torch.stack(losses).cpu()
+        expected = {k: steps * v for k, v in SHARDED_TRAIN_LAUNCHES.items()}
+        check(bool(torch.isfinite(losses).all()),
+              f"[sharded-train] losses not finite: {losses.tolist()}")
+        check(totals == expected,
+              f"[sharded-train] launches in {steps} steps {totals}, "
+              f"expected {expected}")
+        check(reads.count == 0,
+              f"[sharded-train] {reads.count} host reads in {steps} steps "
+              f"at {reads.where}")
+        busy, _, nfun, _, wall = profile_chain(
+            torch, lambda: step.train_step(p, x, target), calls=2)
+        print(f"[sharded-train] NCCL world size 1, mesh (1, 1), B={B} "
+              f"T={T} float32: median {np.median(ms):.3f} ms a step, p90 "
+              f"{np.percentile(ms, 90):.3f} ({steps} steps after "
+              f"{SHARDED_TRAIN_WARM}); {B * T / np.median(ms) * 1e3:.0f} "
+              f"samples/s; loss {float(losses[0]):.6f} -> "
+              f"{float(losses[-1]):.6f}; {busy_share(busy, wall)}, "
+              f"{nfun:.0f} device functions a step; peak memory "
+              f"{peak:.2f} GiB; launches a step "
+              f"{ {k: v // steps for k, v in totals.items()} } (expected "
+              f"{SHARDED_TRAIN_LAUNCHES}); host reads a step "
+              f"{reads.count / steps:g} (allowed 0) | {card}", flush=True)
+        split = train_term_split(torch, step, p, x, target)
+        print("[sharded-train] split, CUDA-event ms (forward, backward; "
+              "medians of 5): " + "; ".join(
+                  f"{k} {f:.3f}, {b:.3f}" for k, (f, b) in split.items())
+              + f"; sum {sum(f + b for f, b in split.values()):.3f} | "
+              f"{card}", flush=True)
+        # the checks, from stable_lpc's coefficients (lpc's gradient is
+        # zero at the dryrun's [1, 0, ...])
+        pk = train_pytree(step, inputs, True)
+        got = train_grads(step, pk, x, target)
+        with twins():
+            want = train_grads(step, pk, x, target)
+        twin = train_errs(torch, got, want)
+        cpu = DryrunStep(mesh, device="cpu", dtype=torch.float64)
+        rows = {k: v[:2].astype(np.float64) for k, v in inputs.items()}
+        pk64 = {"window": {k: v.astype(np.float64)
+                           for k, v in pk["window"].items()},
+                "mc": rows["mc"], "lpc": pk["lpc"][:2].astype(np.float64)}
+        ref = train_grads(cpu, pk64, *cpu.blocks(rows))
+        row_err = train_errs(torch, {k: got[k][:2] for k in ("mc", "lpc")},
+                             {k: ref[k] for k in ("mc", "lpc")}, 2 / B)
+        print("[sharded-train] from stable_lpc's coefficients: kernel path "
+              "against twins() (bar): " + "; ".join(
+                  f"{k} {v:.3e} ({SHARDED_TRAIN_BARS[k]})"
+                  for k, v in twin.items())
+              + "; rows 0-1 against a float64 CPU step on them, times 2/"
+              f"{B} (bar): " + "; ".join(
+                  f"{k} {v:.3e} ({SHARDED_TRAIN_BARS[k]})"
+                  for k, v in row_err.items()) + f" | {card}", flush=True)
+        for tag, errs in (("twins()", twin), ("float64 rows 0-1", row_err)):
+            for k, v in errs.items():
+                check(v <= SHARDED_TRAIN_BARS[k],
+                      f"[sharded-train] {k} {v:.3e} from {tag} (bar "
+                      f"{SHARDED_TRAIN_BARS[k]})")
+    finally:
+        dist.destroy_process_group()
+    run_sharded_train_multi(torch, card)
+    loss = dryrun_multichip(1)
+    check(np.isfinite(loss), f"[sharded-train] dryrun_multichip(1): {loss}")
+    print(f"[sharded-train] dryrun_multichip(1) ran on the card, loss "
+          f"{loss:.6f} (its line above) | {card}", flush=True)
+
+
+def sharded_train_rank(rank: int, world: int, device: str, dp: int, tp: int,
+                       inputs: dict, params: dict) -> dict:
+    """One rank of [sharded-train]'s n-card check (``spawn_ranks``'
+    worker): its blocks of the global ``inputs`` and ``params`` (numpy)
+    through ``DryrunStep`` on the (dp, tp) mesh: one backward
+    (``train_grads``) gathered whole, and the median ms of 3
+    ``train_step``s after one."""
+    import torch
+
+    from diffsptk_tpu_torch.parallel import make_mesh, unshard
+    from diffsptk_tpu_torch.parallel.train import DryrunStep
+
+    mesh = make_mesh((dp, tp), device_type=device)
+    step = DryrunStep(mesh, device=device, dtype=torch.float32)
+    x, target = step.blocks(inputs)
+    g = train_grads(step, params, x, target)
+    res = {"loss": float(g["loss"]), "world": float(g["world"]),
+           "window": g["window"].cpu().numpy(),
+           **{k: unshard(g[k], mesh, time_dim=-2).cpu().numpy()
+              for k in ("mc", "lpc")}}
+    p = step.params_from_jax(params)
+    ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        loss, p = step.train_step(p, x, target)
+        float(loss)                  # the step's end on every rank
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["ms"] = float(np.median(ms[1:]))
+    return res
+
+
+def run_sharded_train_multi(torch, card: str, world: int | None = None
+                            ) -> dict:
+    """[sharded-train] across cards: with two cards or more (``world`` of
+    them, all by default), one NCCL rank a card on the dryrun's (dp, tp)
+    mesh, each rank holding a block of the flagship's 32 x 19,200 of a
+    (32 dp) x (19,200 tp) input, from stable_lpc's coefficients: the loss,
+    its WORLD term and the gradients against one card's step on the same
+    global input (SHARDED_TRAIN_BARS), and ms a step on n cards and on
+    one (host clock, the step's end read on every rank).  With one card it
+    says that it did not run."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from diffsptk_tpu_torch.parallel import make_mesh
+    from diffsptk_tpu_torch.parallel.ranks import spawn_ranks
+    from diffsptk_tpu_torch.parallel.train import (DryrunStep, dryrun_inputs,
+                                                   dryrun_shape)
+
+    n = torch.cuda.device_count() if world is None else world
+    if n < 2:
+        print(f"[sharded-train] n cards: not run, {n} card present, and "
+              f"NCCL takes one rank a card | {card}", flush=True)
+        return {}
+    dp, tp, _, _ = dryrun_shape(n)
+    rows, samples = SHARDED_TRAIN_B, SHARDED_TRAIN_T
+    B, T = rows * dp, samples * tp
+    inputs = dryrun_inputs(B, T, np.float32)
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        one = DryrunStep(make_mesh((1, 1)), device="cuda",
+                         dtype=torch.float32)
+        params = train_pytree(one, inputs, True)
+        x, target = one.blocks(inputs)
+        want = train_grads(one, params, x, target)
+        p = one.params_from_jax(params)
+        ms1 = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            loss, p = one.train_step(p, x, target)
+            float(loss)
+            ms1.append((time.perf_counter() - t0) * 1e3)
+        want = {k: v.detach().cpu() for k, v in want.items()}
+        del one, x, target, p
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    got = spawn_ranks(sharded_train_rank, dp * tp, "cuda", dp, tp, inputs,
+                      params)
+    errs = train_errs(torch, got, want)
+    print(f"[sharded-train] {dp * tp} ranks on the mesh ({dp}, {tp}), "
+          f"{B} x {T} (each rank {rows} x {samples}), against one card on "
+          f"the same input (bar): " + "; ".join(
+              f"{k} {v:.3e} ({SHARDED_TRAIN_BARS[k]})"
+              for k, v in errs.items())
+          + f"; ms a step {got['ms']:.3f} on {dp * tp}, "
+          f"{float(np.median(ms1[1:])):.3f} on one | {card}", flush=True)
+    for k, v in errs.items():
+        check(v <= SHARDED_TRAIN_BARS[k],
+              f"[sharded-train] {k}: {v:.3e} from one card (bar "
+              f"{SHARDED_TRAIN_BARS[k]})")
     return errs
 
 
@@ -5648,11 +5936,15 @@ def main() -> int:
     run_sharded_multi(torch, xw, xb, joint, card)
     del xb, joint
 
-    # 39. the training paths: the pitch networks' trainers
+    # 39. the JAX package's multi-chip training step through every sharded
+    #     path, then across cards where there are several
+    run_sharded_train(torch, card)
+
+    # 40. the training paths: the pitch networks' trainers
     run_train_pitch(torch, xw, card)
 
-    # 40. the cascade's reduced-precision arms on the tensor cores, and
-    # 41. the one-card examples
+    # 41. the cascade's reduced-precision arms on the tensor cores, and
+    # 42. the one-card examples
     report.update(run_precision(
         torch, xw, card, tc_ptxas(logs.get("mlsa_cascade_tc", ""))))
     run_examples(torch, card)

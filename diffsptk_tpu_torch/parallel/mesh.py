@@ -14,7 +14,11 @@ time blocks).  Each named dimension resolves to its process group:
   of ``P2POp``s inside the axis' group, every rank posting its sends and
   receives at once; at size 1 nothing is sent);
 * ``lax.all_gather`` -- :func:`all_gather`, which passes the gradient;
-* GSPMD's ``psum`` -- ``dist.all_reduce`` in the axis' group.
+* GSPMD's ``psum`` -- ``dist.all_reduce`` in the axis' group
+  (:func:`all_reduce`; over every axis, :func:`mesh_sum`);
+* the transpose of a parameter closed over with ``P()`` (summed over
+  every axis) -- :func:`reduce_replicated_grads`, once after
+  ``backward``.
 
 A sharded class takes the rank's local block and returns its local block;
 :func:`shard` cuts a global tensor into this rank's block and
@@ -232,6 +236,37 @@ def all_reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size > 1:
         dist.all_reduce(x, group=axis.group)
     return x
+
+
+def mesh_sum(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The sum of ``x`` over every rank of the mesh (in place; returned):
+    one all-reduce along each named dimension in turn.  Every rank ends
+    with the same bits, since each step sums the same values in the same
+    order on all of them.  Not differentiable."""
+    for name in mesh.mesh_dim_names or ():
+        all_reduce(x, Axis(mesh, name))
+    return x
+
+
+def reduce_replicated_grads(params, mesh: DeviceMesh) -> None:
+    """Sum ``.grad`` of each replicated parameter over every rank of the
+    mesh (both ``dp`` and ``tp``), in place, once, after ``backward``.
+
+    The transpose of a parameter that the JAX package closes over inside
+    ``shard_map`` (an input with ``P()``): each rank's backward gives the
+    gradient of its own share of the loss, and the parameter's gradient is
+    their sum.  It stays outside autograd: a differentiable sum whose
+    backward is again an all-reduce would count the replicated loss once
+    a rank.  Sharded parameters keep their local gradients (a halo's share
+    already comes back through ``exchange_halo``'s backward).  The
+    gradients travel as one flat buffer; a parameter without one is
+    skipped."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = mesh_sum(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def _split(x: torch.Tensor, dim: int, axis: Axis, tail: int = 0):

@@ -5,15 +5,11 @@ Each example reads ``--wav``, or, since the repo ships no speech file,
 takes synthetic speech made from ``--seed``: a pulse train whose f0
 glides, through three formant resonators, plus a little noise.  Each runs
 on the card unless ``--device cpu`` is given.  The sharded examples run
-one process a rank (:func:`spawn_ranks`).
+one process a rank (``diffsptk_tpu_torch.parallel.ranks.spawn_ranks``).
 """
 import argparse
-import datetime
-import multiprocessing
 import os
-import queue
 import sys
-import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
@@ -71,61 +67,6 @@ def speech(args, device, rows: int = 1) -> tuple[torch.Tensor, int]:
                      for r in range(rows)])
     x = x.to(device=device, dtype=torch.float32)
     return (x[0] if rows == 1 else x), 16000
-
-
-def _rank(worker, rank: int, world: int, device: str, store: str, out,
-          args) -> None:
-    import torch.distributed as dist
-
-    if device == "cuda":
-        torch.cuda.set_device(rank)
-    else:       # the ranks share the host's cores
-        torch.set_num_threads(max(1, min(torch.get_num_threads(),
-                                         (os.cpu_count() or 1) // world)))
-    dist.init_process_group(
-        "nccl" if device == "cuda" else "gloo",
-        store=dist.FileStore(store, world), rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=120))
-    try:
-        result = worker(rank, world, device, *args)
-        if rank == 0:
-            out.put(result)
-    finally:
-        dist.destroy_process_group()
-
-
-def spawn_ranks(worker, ranks: int, device: str, *args):
-    """Run ``worker(rank, ranks, device, *args)`` in ``ranks`` new
-    processes joined in one process group: NCCL with one card a rank where
-    ``device`` is "cuda", gloo on the CPU otherwise.  ``worker`` is a
-    module-level function; returns what rank 0's call returns, and raises
-    if a rank failed."""
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    with tempfile.TemporaryDirectory() as tmp:
-        store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank, args=(worker, rank, ranks, device,
-                                                 store, out, args))
-                 for rank in range(ranks)]
-        for proc in procs:
-            proc.start()
-        result = []
-        while not result:       # read rank 0's result before joining
-            try:
-                result.append(out.get(timeout=1.0))
-            except queue.Empty:
-                if procs[0].exitcode is not None:   # flushed before exit
-                    try:
-                        result.append(out.get(timeout=1.0))
-                    except queue.Empty:
-                        pass
-                    break
-        for proc in procs:
-            proc.join()
-    codes = [proc.exitcode for proc in procs]
-    if any(codes) or not result:
-        raise RuntimeError(f"the ranks exited with {codes}")
-    return result[0]
 
 
 def rank_count(args) -> tuple[int, str]:

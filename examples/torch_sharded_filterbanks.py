@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 import diffsptk_tpu_torch as pt
-from torch_common import parser, rank_count, spawn_ranks, speech
+from diffsptk_tpu_torch.parallel.ranks import spawn_ranks
+from torch_common import parser, rank_count, speech
 
 CHANNELS = 4
 L, K, M = 256, 4, 47

@@ -21,7 +21,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import torch
 
 from diffsptk_tpu_torch.models import MelCepstralVocoder
-from torch_common import parser, rank_count, spawn_ranks, speech
+from diffsptk_tpu_torch.parallel.ranks import spawn_ranks
+from torch_common import parser, rank_count, speech
 
 ROWS = 4
 KW = dict(frame_length=400, frame_period=80, fft_length=512, cep_order=24,

@@ -35,7 +35,8 @@ the CPU's (one host computation).  The misc ops within MISC_BARS and with
 no host read; two LBG runs on the card equal (integer counts and a one-hot
 GEMM for the centroid sums); the stateless functions' kernel launches;
 the median filter beyond torch.quantile's 2^24 elements equal to the CPU's
-run in chunks of the batch.
+run in chunks of the batch; the multi-chip training step (parallel/train.py)
+within SHARDED_TRAIN_BARS of its float64 run on the CPU.
 """
 
 from __future__ import annotations
@@ -1558,6 +1559,60 @@ def test_sharded_world_on_one_nccl_rank(nccl_mesh):
     assert launches == SHARDED_LAUNCHES["world"]
     assert launches["ola"] == 1
     assert rel_to_max(torch, y, want) <= SHARDED_BARS["world"]
+
+
+def test_sharded_train_step_on_one_nccl_rank(nccl_mesh):
+    """The JAX package's multi-chip training step (parallel/train.py,
+    ``DryrunStep``) through NCCL at world size 1 on rows 0-1 of
+    [sharded-train]'s input (2 x 19,200) from stable_lpc's coefficients:
+    a step launches the overlap-add kernel (B7) once, the gather (B6) and
+    the threefry kernel as SHARDED_TRAIN_LAUNCHES states and reads nothing
+    back to the host, and its loss, its WORLD term and the gradients of
+    window, mc and lpc lie within SHARDED_TRAIN_BARS of the same step on
+    the CPU in float64 (the plain twins), whose WORLD draws the card's
+    noise (``NoiseTape``)."""
+    from chip_smoke import (
+        SHARDED_TRAIN_B,
+        SHARDED_TRAIN_BARS,
+        SHARDED_TRAIN_LAUNCHES,
+        SHARDED_TRAIN_T,
+        NoiseTape,
+        train_errs,
+        train_grads,
+        train_pytree,
+    )
+    from diffsptk_tpu_torch.ops import world_common as wc
+    from diffsptk_tpu_torch.parallel.train import DryrunStep, dryrun_inputs
+    inputs = {k: v[:2] for k, v in dryrun_inputs(
+        SHARDED_TRAIN_B, SHARDED_TRAIN_T, np.float32).items()}
+    card = DryrunStep(nccl_mesh, device="cuda", dtype=torch.float32)
+    params = train_pytree(card, inputs, True)
+    x, target = card.blocks(inputs)
+    p = card.params_from_jax(params)
+    (loss, _), launches = _no_read_launches(
+        lambda: card.train_step(p, x, target))
+    assert launches == SHARDED_TRAIN_LAUNCHES
+    assert torch.isfinite(loss)
+    tape = NoiseTape(torch, wc, card.world.synth)
+    undo = tape.record()
+    try:
+        got = train_grads(card, params, x, target)
+    finally:
+        undo()
+    # the CPU step on the same values and the card's WORLD noise: the
+    # size-1 mesh sends nothing
+    cpu = DryrunStep(nccl_mesh, device="cpu", dtype=torch.float64)
+    rows = {k: v.astype(np.float64) for k, v in inputs.items()}
+    params64 = {"window": {k: v.astype(np.float64)
+                           for k, v in params["window"].items()},
+                "mc": rows["mc"], "lpc": params["lpc"].astype(np.float64)}
+    undo = tape.replay(cpu.world.synth, rows=2)
+    try:
+        want = train_grads(cpu, params64, *cpu.blocks(rows))
+    finally:
+        undo()
+    errs = train_errs(torch, got, want)
+    assert all(errs[k] <= SHARDED_TRAIN_BARS[k] for k in errs), errs
 
 
 def _train_tool(name: str):

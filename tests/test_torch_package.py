@@ -191,7 +191,8 @@ def test_parallel_imports_with_jax_blocked():
     """``diffsptk_tpu_torch.parallel`` imports without JAX, exports the
     JAX package's eight ``parallel`` names and ``shard`` / ``unshard``, and
     is not imported by the package itself (as the JAX package's is
-    not)."""
+    not); so do the training step ``parallel.train`` and the entry points
+    ``diffsptk_tpu_torch.entry``, and none of them loads ``jax``."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['diffsptk_tpu'] = None\n"
@@ -200,21 +201,28 @@ def test_parallel_imports_with_jax_blocked():
             "import diffsptk_tpu_torch.parallel as par\n"
             f"names = {PARALLEL_NAMES!r}\n"
             "missing = [n for n in names if not hasattr(par, n)]\n"
-            "assert not missing, missing\n")
+            "assert not missing, missing\n"
+            "import diffsptk_tpu_torch.entry as entry\n"
+            "import diffsptk_tpu_torch.parallel.train as train\n"
+            "assert callable(entry.dryrun_multichip)\n"
+            "assert callable(train.DryrunStep)\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+            "            ('jax', 'diffsptk_tpu') and sys.modules[m]]\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
 
 
 def test_parallel_sources_name_no_jax():
-    """No identifier, attribute or import under parallel/ names ``jax`` or
-    ``diffsptk_tpu`` (its docstrings cite the JAX package's files)."""
+    """No identifier, attribute or import under parallel/ or in
+    ``entry.py`` names ``jax`` or ``diffsptk_tpu`` (their docstrings cite
+    the JAX package's files)."""
     bad = []
     pdir = os.path.join(PKG, "parallel")
-    for f in sorted(os.listdir(pdir)):
-        if not f.endswith(".py"):
-            continue
-        path = os.path.join(pdir, f)
+    paths = [os.path.join(pdir, f) for f in sorted(os.listdir(pdir))
+             if f.endswith(".py")] + [os.path.join(PKG, "entry.py")]
+    for path in paths:
+        f = os.path.relpath(path, PKG)
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
         for node in ast.walk(tree):

@@ -5,8 +5,8 @@ float64, and against the port's one-rank MelCepstralVocoder, as
 tests/test_parallel.py holds the JAX package: the round trip at 1e-8 on
 synthetic speech (never ``data.wav``), the synthesis's gradient against
 ``jax.grad``, the bulk halo against the per-stage one at 1e-10 and the
-one-rank synthesis at 1e-8 (tests/test_torch_parallel.py describes the
-ranks)."""
+one-rank synthesis at 1e-8, and the bulk halo's gradient against
+``jax.grad`` (tests/test_torch_parallel.py describes the ranks)."""
 
 from __future__ import annotations
 
@@ -136,3 +136,48 @@ def test_sharded_mlsa_bulk_halo_matches_per_stage(ranks, mesh_shape):
     scale = float(np.abs(stage).max())
     close(bulk, stage, 1e-10, 1e-12 * scale)
     close(stage, single.synthesize(t64(e), t64(mc)), 1e-8, 1e-10 * scale)
+
+
+def case_bulk_grad(ctx, e, mc, target, mesh_shape):
+    from diffsptk_tpu_torch.parallel import (ShardedMelCepstralVocoder,
+                                             shard, unshard)
+    mesh = ctx.mesh(mesh_shape)
+    voc = ShardedMelCepstralVocoder(mesh, **GRAD_KW, device="cpu",
+                                    dtype=torch.float64)
+    mcb = shard(t64(mc), mesh, time_dim=-2).clone().requires_grad_(True)
+    y = voc.synthesize(shard(t64(e), mesh), mcb, halo="bulk")
+    # this rank's share of the global mean
+    loss = ((y - shard(t64(target), mesh)) ** 2).sum() / target.size
+    loss.backward()
+    return unshard(mcb.grad, mesh, time_dim=-2).numpy()
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (1, 8)])
+def test_sharded_mlsa_bulk_halo_grad_matches_jax(ranks, mesh_shape):
+    """The gradient of the bulk-halo synthesis's mean squared error with
+    respect to the mel-cepstra, through its one exchange of the whole
+    cascade's reach and the edge-replicated coefficient halo: equal to
+    jax.grad of the JAX package's bulk synthesis and to the one-rank
+    port's, rtol 1e-8 (at least 16 frames a rank: the 4-stage reach is
+    12)."""
+    import jax
+    import jax.numpy as jnp
+
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu.parallel.vocoder import ShardedMelCepstralVocoder
+    rng = np.random.default_rng(3)
+    e = rng.standard_normal((2, 1024))
+    mc = 0.01 * rng.standard_normal((2, 128, 5))
+    target = rng.standard_normal((2, 1024))
+    voc = ShardedMelCepstralVocoder(jax_mesh(*mesh_shape), **GRAD_KW)
+    want = jax.jit(jax.grad(lambda m: jnp.mean(
+        (voc.synthesize(e, m, halo="bulk") - target) ** 2)))(mc)
+    got = ranks("case_bulk_grad", e=e, mc=mc, target=target,
+                mesh_shape=mesh_shape)
+    assert np.abs(got).max() > 0
+    close(got, want, 1e-8, 1e-12 * np.abs(want).max())
+    single = pt.MelCepstralVocoder(**GRAD_KW, device="cpu",
+                                   dtype=torch.float64)
+    m = t64(mc).requires_grad_(True)
+    ((single.synthesize(t64(e), m) - t64(target)) ** 2).mean().backward()
+    close(got, m.grad, 1e-8, 1e-12 * np.abs(want).max())
