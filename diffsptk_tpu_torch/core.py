@@ -155,7 +155,8 @@ class BaseOp(nn.Module):
 
     @full_precision
     def forward(self, *args, **kwargs):
-        return self._forward(*args, **kwargs, **self._state())
+        with span(type(self).__name__):
+            return self._forward(*args, **kwargs, **self._state())
 
     @classmethod
     def _func(cls, *inputs, **kwargs):
@@ -256,3 +257,7 @@ def _operator(cls, args: _Arguments, device, dtype):
     """The stateless path's operator of ``cls``, built from ``args`` on
     ``device`` in ``dtype`` (LRU-cached)."""
     return cls(**args.kwargs, device=device, dtype=dtype)
+
+
+# last: the utilities import this module (utils/wavio.py)
+from .utils.profiling import span  # noqa: E402

@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import span
 from . import build
 from .state import use_twins
 
@@ -120,6 +121,7 @@ def _check(x: torch.Tensor, starts: torch.Tensor, length: int) -> None:
         raise TypeError("starts must be integer")
 
 
+@span("kernel.gather")
 def gather_windows_cuda(x: torch.Tensor, starts: torch.Tensor,
                         length: int) -> torch.Tensor:
     """The gather on the card: x (B, T) float32, starts (B, N) integer.

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from . import build
 from .mlsa_cascade import (
     PRECISIONS,
@@ -124,6 +125,7 @@ def _run(entry: str, x, c, weights, a, P: int, advance: int, defines=()):
     return y, S
 
 
+@span("kernel.mlsa.chunked")
 def cascade_chunked_cuda(x: torch.Tensor, c: torch.Tensor,
                          weights: torch.Tensor, a: torch.Tensor, P: int,
                          advance: int, nfft_c: int,
@@ -146,6 +148,7 @@ def cascade_chunked_cuda(x: torch.Tensor, c: torch.Tensor,
     return y
 
 
+@span("kernel.mlsa.unchunked")
 def cascade_unchunked_cuda(x: torch.Tensor, c: torch.Tensor,
                            weights: torch.Tensor, a: torch.Tensor, P: int,
                            advance: int, nfft: int) -> torch.Tensor:
@@ -432,6 +435,7 @@ def _run_tc(x, c, weights, a, P: int, advance: int, nfft: int,
     return y, S
 
 
+@span("kernel.mlsa.chunked_tc")
 def cascade_chunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
                             weights: torch.Tensor, a: torch.Tensor, P: int,
                             advance: int, nfft_c: int, precision: str,
@@ -453,6 +457,7 @@ def cascade_chunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
     return y
 
 
+@span("kernel.mlsa.unchunked_tc")
 def cascade_unchunked_tc_cuda(x: torch.Tensor, c: torch.Tensor,
                               weights: torch.Tensor, a: torch.Tensor, P: int,
                               advance: int, nfft: int, precision: str,

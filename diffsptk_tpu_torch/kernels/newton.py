@@ -27,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import build
 from .state import use_twins
 
@@ -120,6 +121,7 @@ def _lib():
     return fn
 
 
+@span("kernel.newton")
 def _launch(p_t, q_t, b_t, n: int) -> torch.Tensor:
     """Launch the kernel; ``p_t is q_t`` marks mcep's one generator, which
     the kernel reads as the first n rows of q_t."""

@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import span
 from . import build
 from .state import use_twins
 
@@ -87,6 +88,7 @@ def _lib():
     return fn
 
 
+@span("kernel.ola")
 def overlap_add_cuda(tidx: torch.Tensor, resp: torch.Tensor, out_len: int,
                      perm: torch.Tensor | None = None) -> torch.Tensor:
     """The overlap-add on the card.  tidx (B, P) sorted along each row,

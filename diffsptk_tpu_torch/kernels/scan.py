@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import span
 from . import build
 from .state import use_twins
 
@@ -198,7 +199,6 @@ def first_order_scan(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     A CPU tensor takes the plain twin.  A CUDA tensor launches the kernel,
     which takes float32 and complex64, and raises on anything else.
     """
-    global launches
     if p.shape != x.shape:
         raise ValueError(
             f"p and x must share one shape, got {tuple(p.shape)} and "
@@ -207,6 +207,14 @@ def first_order_scan(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("p and x must share device and dtype.")
     if not x.is_cuda or use_twins():
         return first_order_scan_plain(p, x)
+    return _scan_cuda(p, x)
+
+
+@span("kernel.scan")
+def _scan_cuda(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The scan on the card (the checked arguments of
+    :func:`first_order_scan`)."""
+    global launches
     if x.dtype not in DTYPES:
         raise TypeError(
             f"the scan kernel takes float32 or complex64, not {x.dtype}")

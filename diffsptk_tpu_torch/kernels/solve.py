@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import span
 from . import build
 from .state import use_twins
 
@@ -113,10 +114,17 @@ def spd_solve_batched(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     A CPU tensor takes the plain twin.  A CUDA tensor launches the kernel,
     which takes float32 with 1 <= n <= 64, and raises on anything else.
     """
-    global launches
     n = _check_args(A, b)
     if not A.is_cuda or use_twins():
         return spd_solve_plain(A, b)
+    return _solve_cuda(A, b, n)
+
+
+@span("kernel.solve")
+def _solve_cuda(A: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """The solve on the card (the checked arguments of
+    :func:`spd_solve_batched`, systems of order n)."""
+    global launches
     if A.dtype != torch.float32:
         raise TypeError(f"the SPD solve kernel takes float32, not {A.dtype}")
     if not 1 <= n <= MAX_ORDER:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..utils import prng
+from ..utils.profiling import span
 from . import build
 from .state import use_twins
 
@@ -73,6 +74,7 @@ def _launch(fn, *args, device) -> None:
     launches += 1
 
 
+@span("kernel.threefry.normal")
 def normal_cuda(key: torch.Tensor, shape, device, bits: bool = False
                 ) -> torch.Tensor:
     """``prng.normal(key, shape, float32)`` on the card (``bits=True``:
@@ -91,6 +93,7 @@ def normal_cuda(key: torch.Tensor, shape, device, bits: bool = False
     return out
 
 
+@span("kernel.threefry.uniform")
 def uniform_cuda(key: torch.Tensor, shape, device, minval: float = 0.0,
                  maxval: float = 1.0) -> torch.Tensor:
     """``prng.uniform(key, shape, float32, minval, maxval)`` on the card, in
@@ -110,6 +113,7 @@ def uniform_cuda(key: torch.Tensor, shape, device, minval: float = 0.0,
     return out
 
 
+@span("kernel.threefry.slot_normal")
 def slot_normal_cuda(seed: int, time_index: torch.Tensor, span: int,
                      batch_offset: int, length: int, bits: bool = False
                      ) -> torch.Tensor:

@@ -4,6 +4,10 @@
 On the card in float32 the Newton solves of the analysis run the Newton
 kernel, and with ``cascade="fused"`` both Taylor cascades of the
 synthesis run the cascade kernel.
+
+Under a profiler ``analysis_synthesis`` is the span of a round trip,
+``analyze`` the stage ``analysis``, and each filter of the round trip
+and ``synthesize`` the stage ``synthesis`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from ..ops.mglsadf import (
     PseudoMGLSADigitalFilter,
 )
 from ..ops.stft import ShortTimeFourierTransform
+from ..utils.profiling import span, stage
 
 
 class MelCepstralVocoder(nn.Module):
@@ -58,18 +63,23 @@ class MelCepstralVocoder(nn.Module):
     @full_precision
     def analyze(self, x: torch.Tensor) -> torch.Tensor:
         """Waveform (..., T) -> mel-cepstrum (..., T/P, M+1)."""
-        return self.mcep(self.stft(x))
+        with stage("analysis", x.device):
+            return self.mcep(self.stft(x))
 
     @full_precision
     def synthesize(self, e: torch.Tensor, mc: torch.Tensor) -> torch.Tensor:
         """Excitation + mel-cepstrum -> waveform."""
-        return self.mlsa(e, mc)
+        with stage("synthesis", e.device):
+            return self.mlsa(e, mc)
 
     @full_precision
+    @span("analysis_synthesis")
     def analysis_synthesis(self, x: torch.Tensor) -> torch.Tensor:
         """Full round trip: extract mc, inverse-filter to excitation,
         re-synthesize."""
         mc = self.analyze(x)
         T = mc.shape[-2] * self.frame_period
-        e = self.imlsa(x[..., :T], mc)
-        return self.mlsa(e, mc)
+        with stage("synthesis", x.device):
+            e = self.imlsa(x[..., :T], mc)
+        with stage("synthesis", x.device):
+            return self.mlsa(e, mc)

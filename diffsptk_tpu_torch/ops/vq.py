@@ -15,6 +15,7 @@ from ..core import BaseNonFunctionalOp, check_size, full_precision, \
     resolve_device
 from ..kernels import threefry
 from ..utils import prng
+from ..utils.profiling import span
 
 
 def _nearest(x: torch.Tensor, codebook: torch.Tensor):
@@ -53,6 +54,7 @@ class VectorQuantization(BaseNonFunctionalOp):
             dtype or torch.get_default_dtype(), resolve_device(device)))
 
     @full_precision
+    @span("VectorQuantization")
     def forward(self, x: torch.Tensor, codebook=None):
         codebook = self.codebook if codebook is None else codebook
         check_size(x.shape[-1], self.order + 1, "dimension of input")
@@ -70,6 +72,7 @@ class InverseVectorQuantization(BaseNonFunctionalOp):
         super().__init__()
         self.vq = vq
 
+    @span("InverseVectorQuantization")
     def forward(self, indices: torch.Tensor, codebook=None) -> torch.Tensor:
         if codebook is None:
             if self.vq is None:
@@ -101,6 +104,7 @@ class MultiStageVectorQuantization(BaseNonFunctionalOp):
         return self.codebooks
 
     @full_precision
+    @span("MultiStageVectorQuantization")
     def forward(self, x: torch.Tensor, codebooks=None):
         codebooks = self.codebooks if codebooks is None else codebooks
         check_size(x.shape[-1], self.order + 1, "dimension of input")
@@ -126,6 +130,7 @@ class InverseMultiStageVectorQuantization(BaseNonFunctionalOp):
         super().__init__()
         self.msvq = msvq
 
+    @span("InverseMultiStageVectorQuantization")
     def forward(self, indices: torch.Tensor, codebooks=None) -> torch.Tensor:
         if codebooks is None:
             if self.msvq is None:

@@ -19,6 +19,10 @@ below).  Three patterns:
   The ICQT overlap-adds each octave's frames with one
   ``conv_transpose1d`` (ROADMAP C.6) and normalises by the frames that
   are globally valid.
+
+Under a profiler each call is the span ``Sharded<name>``, the CQT's and
+the ICQT's the stages ``ShardedCQT`` and ``ShardedICQT``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..ops.pqmf import (
     PseudoQuadratureMirrorFilterBankAnalysis,
     PseudoQuadratureMirrorFilterBankSynthesis,
 )
+from ..utils.profiling import span, stage
 from ..utils.resample import Resampler
 from .halo import exchange_halo
 from .mesh import Axis
@@ -73,6 +78,7 @@ class ShardedPQMF(_ShardedFIRBank):
         super().__init__(mesh, PseudoQuadratureMirrorFilterBankAnalysis(
             n_band, filter_order, **kwargs), time_axis_name, batch_axis_name)
 
+    @span("ShardedPQMF")
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self._run(x[:, None, :] if x.ndim == 2 else x)
 
@@ -86,6 +92,7 @@ class ShardedIPQMF(_ShardedFIRBank):
         super().__init__(mesh, PseudoQuadratureMirrorFilterBankSynthesis(
             n_band, filter_order, **kwargs), time_axis_name, batch_axis_name)
 
+    @span("ShardedIPQMF")
     def __call__(self, y: torch.Tensor) -> torch.Tensor:
         return self._run(y)
 
@@ -107,6 +114,7 @@ class ShardedMDCT:
         self.frame_length = frame_length
 
     @full_precision
+    @span("ShardedMDCT")
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         P = self.frame_length // 2
         if x.shape[-1] % P:
@@ -144,6 +152,7 @@ class ShardedIMDCT:
         self.frame_length = frame_length
 
     @full_precision
+    @span("ShardedIMDCT")
     def __call__(self, y: torch.Tensor,
                  out_length: int | None = None) -> torch.Tensor:
         """``out_length`` cuts the global signal: each rank keeps its part
@@ -214,6 +223,10 @@ class ShardedCQT:
 
     @full_precision
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        with stage("ShardedCQT", x.device):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         tp = Axis(self.mesh, self.tp)
         T_l = x.shape[-1]
         if T_l % self.align:
@@ -287,6 +300,10 @@ class ShardedICQT:
 
     @full_precision
     def __call__(self, c: torch.Tensor) -> torch.Tensor:
+        with stage("ShardedICQT", c.device):
+            return self._forward(c)
+
+    def _forward(self, c: torch.Tensor) -> torch.Tensor:
         tp = Axis(self.mesh, self.tp)
         n_b = c.shape[-2]
         N = n_b * tp.size

@@ -5,13 +5,15 @@ Each time block receives the trailing samples of its left neighbour and
 the leading samples of its right neighbour (one ``batch_isend_irecv`` of
 both directions inside the axis' group), so unfold-style ops run
 block-locally afterwards.  The ranks at the global edges pad as the
-unsharded op pads its signal.
+unsharded op pads its signal.  Under a profiler each exchange, forward
+or backward, is the stage ``halo`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import stage
 from .mesh import Axis, neighbour_swap
 
 
@@ -47,9 +49,10 @@ class _Halo(torch.autograd.Function):
         n = x.shape[dim]
         from_left = from_right = None
         if axis.size > 1:
-            from_left, from_right = neighbour_swap(
-                x.narrow(dim, n - left, left) if left > 0 else None,
-                x.narrow(dim, 0, right) if right > 0 else None, axis)
+            with stage("halo", x.device):
+                from_left, from_right = neighbour_swap(
+                    x.narrow(dim, n - left, left) if left > 0 else None,
+                    x.narrow(dim, 0, right) if right > 0 else None, axis)
         parts = []
         if left > 0:
             parts.append(_edge_fill(x, left, dim, "left", modes[0])
@@ -71,7 +74,8 @@ class _Halo(torch.autograd.Function):
         # rank sends nothing past the edge); this rank receives the
         # gradients of the slices it sent
         if axis.size > 1:
-            g_head, g_tail = neighbour_swap(g_right, g_left, axis)
+            with stage("halo", g.device):
+                g_head, g_tail = neighbour_swap(g_right, g_left, axis)
             if left > 0:
                 gx.narrow(dim, n - left, left).add_(g_tail)
             if right > 0:
