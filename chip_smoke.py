@@ -35,8 +35,16 @@ Phases (each prints one line; any failure exits non-zero):
                per scan; its device time, tile and blocks, the host time
                of the wrapper and of its C entry, and torch.cumsum's time
                on the same float32 shape;
+  6a. K9    -- the mcep residual kernel (the Newton step's residual of
+               mel-cepstral analysis) against float64 and its float32
+               twin at the benchmark's one-card shapes (n=25; 76,800 x
+               257, 38,400 x 1,025, 153,600 x 257), at the Newton loop's
+               first and sixth states, a ragged B, smcep's matrices and
+               n = 1, 2, 12, 33; its backward; its time a step and on the
+               device against the twin (the plain chain) and the addmm form;
   7. chain  -- MelCepstralVocoder(cascade="fused").analysis_synthesis on
-               32 x 19,200 float32 samples: launch counts of the run, the
+               32 x 19,200 float32 samples: the mcep residual kernel's
+               launches in one analyze call; launch counts of the run, the
                kernel path against the twin path, a float64 CPU run of
                one row, the IMLSA cascade alone on the chain's own
                coefficients (kernel, twin and float64, its call's median
@@ -187,10 +195,11 @@ Phases (each prints one line; any failure exits non-zero):
                the six filterbanks on [battery]'s 8 x 76,800 and the
                data-parallel GMM on [learners]' 76,800 joint vectors;
                each against the one-rank class (SHARDED_BARS), its kernel
-               launches (SHARDED_LAUNCHES: B1 10 an analysis; WORLD B6 4,
-               B7 1, threefry 2), no host read but the GMM's one a step,
-               the median ms a call and busy shares; the vocoder's row 0
-               within 1e-2 of max|y| of float64 on the CPU;
+               launches (SHARDED_LAUNCHES: B1 and K9 10 an analysis;
+               WORLD B6 4, B7 1, threefry 2), no host read but the GMM's
+               one a step, the median ms a call and busy shares; the
+               vocoder's row 0 within 1e-2 of max|y| of float64 on the
+               CPU;
  38. sharded-multi -- with two cards or more, one NCCL rank a card on a
                (1, n) mesh, each class's unshard against one card at the
                same bars (the GMM also fitted in float64 on both sides);
@@ -694,6 +703,162 @@ def check_scan(torch, dev, card: str) -> dict:
                 library_ms=None)
 
 
+# [K9]'s shapes, the benchmark's one-card cells: (frame length, period,
+# FFT length, alpha, sample rate, rows, samples a row), n = 25.
+RESIDUAL_CELLS = {
+    "mcep16k.resynth": (400, 80, 512, 0.42, 16000, 128, 48000),
+    "mcep48k.resynth": (1200, 240, 2048, 0.55, 48000, 64, 144000),
+    "mcep16k.extract": (400, 80, 512, 0.42, 16000, 256, 48000),
+}
+# [K9]'s bar: the error from float64, of max|rt| (tests/test_torch_gpu.py's
+# RESIDUAL_BAR).  ra = rt[:n] - av cancels as the iteration converges, so
+# ra's own maximum is no scale; its gap over it is printed beside.
+RESIDUAL_BAR = 1e-5
+
+
+def residual_work(n: int, B: int, F: int) -> tuple[float, float]:
+    """(operations, bytes) of one residual step: (6n + 1) F a frame (2n F
+    for D, 3 F for the scale, the subtract and the exp, 2(2n-1) F for
+    rt); log|X|^2 read once, mc read, rt and ra written."""
+    return float((6 * n + 1) * F * B), float(4 * B * (F + 4 * n - 1))
+
+
+def check_mcep_residual(torch, dev, card: str, ptxas: str) -> dict:
+    """[K9]: the mcep residual kernel against float64 and its float32
+    twin at the benchmark's three one-card shapes (n=25), at the Newton
+    loop's first state and its sixth (five plain steps in), at a ragged B,
+    with smcep's matrices and at n = 1, 2, 12, 33; its backward against
+    the twin's; at each shape the kernel's time a step (CUDA events and
+    device), the twin's (the plain chain of two GEMMs, the subtract from
+    the transposed view of log|X|^2, the exp) and the one-line form
+    (log|X|^2 made contiguous once, the subtract folded into the first
+    GEMM by addmm), and the bound."""
+    import diffsptk_tpu_torch as pt
+    from diffsptk_tpu_torch.kernels import mcep_residual as mr
+    from diffsptk_tpu_torch.kernels.newton import newton_solve_t
+
+    def gaps(got, want):
+        """Each output's error over max|rt|, and ra's over max|ra|."""
+        scale = float(want[0].abs().max())
+        errs = [float((g.double() - w).abs().max())
+                for g, w in zip(got, want)]
+        return max(errs) / scale, errs[1] / float(want[1].abs().max())
+
+    rows = {}
+
+    def hold(what, args):
+        before = mr.launches
+        got = mr.mcep_residual_lane_major(*args)
+        torch.cuda.synchronize()
+        check(mr.launches == before + 1,
+              f"K9 {what}: {mr.launches - before} launches, expected 1")
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"K9 {what}: the kernel's output is not finite")
+        want = mr.mcep_residual_plain(*(a.double() for a in args))
+        k, k_ra = gaps(got, want)
+        t, t_ra = gaps(mr.mcep_residual_plain(*args), want)
+        check(k < RESIDUAL_BAR, f"K9 {what}: the kernel is {k:.3e} of "
+              f"max|rt| from float64 (bar {RESIDUAL_BAR})")
+        rows[what] = (k, t, k_ra, t_ra)
+
+    speech = {16000: synth_speech(256, 48000, 16000),
+              48000: synth_speech(64, 144000, 48000)}
+    times, result = [], None
+    for cell, (frame, period, nfft, alpha, sr, B_rows, T) in \
+            RESIDUAL_CELLS.items():
+        x = torch.as_tensor(speech[sr][:B_rows], device=dev)
+        kw = dict(fft_length=nfft, cep_order=24, alpha=alpha, n_iter=1,
+                  device=dev, dtype=torch.float32)
+        op = pt.MelCepstralAnalysis(**kw)
+        with torch.no_grad():
+            sp = pt.STFT(frame, period, nfft, out_format="power", device=dev,
+                         dtype=torch.float32)(x)
+            lx = torch.log(sp).reshape(-1, nfft // 2 + 1).contiguous()
+            del x, sp
+            P1, P2, av = op.P1, op.P2, op.alpha_vector
+            n, (B, F) = av.shape[0], lx.shape
+            mc0 = torch.matmul(lx, op.P0).T.contiguous()
+            mc = mc0
+            for _ in range(5):
+                rt, ra = mr.mcep_residual_plain(mc, lx, P1, P2, av)
+                mc = mc + newton_solve_t(rt, ra)
+            hold(f"{cell} first state", (mc0, lx, P1, P2, av))
+            hold(f"{cell} sixth state", (mc.contiguous(), lx, P1, P2, av))
+            if cell == "mcep16k.resynth":
+                cut = B - 37
+                hold(f"{cell} ragged B={cut}",
+                     (mc0[:, :cut].contiguous(), lx[:cut].contiguous(), P1,
+                      P2, av))
+            sm = pt.SecondOrderAllPassMelCepstralAnalysis(theta=0.1, **kw)
+            hold(f"{cell} smcep's matrices",
+                 (torch.matmul(lx, sm.P0).T.contiguous(), lx, sm.P1, sm.P2,
+                  sm.alpha_vector))
+            args = (mc0, lx, P1, P2, av)
+            lx_c, P1_t, P2_t = lx.T.contiguous(), P1.T, P2.T
+
+            def addmm():
+                d = torch.exp(torch.addmm(lx_c, P1_t, mc0, alpha=-2))
+                rt = torch.matmul(P2_t, d)
+                return rt, rt[:n] - av[:, None]
+
+            ms = cuda_ms(torch, lambda: mr.mcep_residual_lane_major(*args),
+                         100)
+            dev_ms = kernel_device_ms(
+                torch, lambda: mr.mcep_residual_lane_major(*args),
+                "mcep_residual_kernel")[0]
+            plain = cuda_ms(torch, lambda: mr.mcep_residual_plain(*args), 50)
+            lib = cuda_ms(torch, addmm, 50)
+            flops, nbytes = residual_work(n, B, F)
+            bound, by = bound_ms(nbytes, flops)
+            times.append(
+                f"{cell} (B={B}, F={F}): kernel {ms:.4f} ms a step, device "
+                f"{device_rate(nbytes, dev_ms, bound)}; twin {plain:.4f}; "
+                f"addmm {lib:.4f}; bound {bound:.5f} ms ({by})")
+            if result is None:
+                result = dict(max_abs_err=rows[f"{cell} first state"][0],
+                              ms=ms, plain_ms=plain, bound_ms=bound,
+                              bound_by=by, library_ms=lib)
+                back = (mc0[:, :2000].contiguous(), lx[:2000].contiguous(),
+                        P1, P2, av)
+        del lx, mc0, mc, args, lx_c
+        torch.cuda.empty_cache()
+    for M in (0, 1, 11, 32):
+        a = pt.MelCepstralAnalysis(fft_length=512, cep_order=M, alpha=0.42,
+                                   n_iter=1, device=dev, dtype=torch.float32)
+        g = torch.Generator(dev).manual_seed(M)
+        lx = torch.log(torch.rand((3001, 257), generator=g, device=dev)
+                       + 0.05)
+        hold(f"n={M + 1} (B=3001, F=257)",
+             (torch.matmul(lx, a.P0).T.contiguous(), lx, a.P1, a.P2,
+              a.alpha_vector))
+    # The backward, every input learnable, against autograd through the
+    # twin, at 2,000 frames of the first shape.
+    g = torch.Generator(dev).manual_seed(3)
+    w = (torch.randn(49, 2000, device=dev, generator=g),
+         torch.randn(25, 2000, device=dev, generator=g))
+
+    def grads(f):
+        xs = [a.detach().clone().requires_grad_(True) for a in back]
+        rt, ra = f(*xs)
+        ((w[0] * rt).sum() + (w[1] * ra).sum()).backward()
+        return [a.grad for a in xs]
+
+    err_grad = max(
+        float((a - b).abs().max()) / float(b.abs().max())
+        for a, b in zip(grads(mr.mcep_residual),
+                        grads(mr.mcep_residual_plain)))
+    check(err_grad <= 1e-4, f"K9 backward disagrees with the twin's: "
+          f"{err_grad:.3e} of each gradient's max")
+    print("[K9] |out-f64| / max|rt| kernel, twin (ra's over max|ra| kernel, "
+          "twin): " + "; ".join(
+              f"{k} {v[0]:.3e}, {v[1]:.3e} ({v[2]:.3e}, {v[3]:.3e})"
+              for k, v in rows.items())
+          + f" (bar {RESIDUAL_BAR} for the kernel); backward {err_grad:.3e} "
+          f"(tol 1e-4); " + "; ".join(times) + f"; ptxas "
+          f"mcep_residual_kernel: {ptxas} | {card}", flush=True)
+    return result
+
+
 def lpc_chain(torch, M: int, device, dtype, eps=None):
     """configs[1] as bench_all.py builds it: frame + window -> LPC(M) ->
     norm0 -> all-zero inverse filter, then the all-pole resynthesis.
@@ -1076,7 +1241,7 @@ def run_analysis_rest(torch, xs, card: str) -> None:
     back to the host (torch.cuda.set_sync_debug_mode("error") around each
     call, after a first call that makes the libraries' plans); each
     module's median time of 5 calls."""
-    from diffsptk_tpu_torch.kernels import newton
+    from diffsptk_tpu_torch.kernels import mcep_residual, newton
 
     ops = analysis_rest_ops(torch, "cuda", torch.float32)
     ops64 = analysis_rest_ops(torch, "cpu", torch.float64)
@@ -1087,6 +1252,7 @@ def run_analysis_rest(torch, xs, card: str) -> None:
             ops[name](inputs[name])
         torch.cuda.synchronize()
         newton.launches = newton.launches_toephank = 0
+        mcep_residual.launches = 0
         out, synced = {}, []
         for name in on_card:
             torch.cuda.set_sync_debug_mode("error")
@@ -1100,10 +1266,12 @@ def run_analysis_rest(torch, xs, card: str) -> None:
                 torch.cuda.set_sync_debug_mode("default")
             if name == "smcep":
                 torch.cuda.synchronize()
-                launches = (newton.launches, newton.launches_toephank)
-                check(launches == (10, 0),
-                      f"[analysis-rest] smcep: Newton launches {launches} "
-                      f"(all, two-generator), expected (10, 0)")
+                launches = (newton.launches, newton.launches_toephank,
+                            mcep_residual.launches)
+                check(launches == (10, 0, 10),
+                      f"[analysis-rest] smcep: Newton launches (all, "
+                      f"two-generator) and mcep residual launches "
+                      f"{launches}, expected (10, 0, 10)")
         check(not synced, f"[analysis-rest] host reads in {synced}")
         ms = {name: float(np.median(cuda_call_ms(
             torch, lambda op=ops[name], x=inputs[name]: op(x), 5, warm=1)))
@@ -2267,7 +2435,7 @@ def run_chain48(torch, card: str) -> dict:
     does not converge on this speech, in the JAX package as in the port
     (tests/test_torch_mlsa.py::test_mcep_vocoder_48k_taylor_order_matches_jax)."""
     from diffsptk_tpu_torch import MelCepstralVocoder, twins
-    from diffsptk_tpu_torch.kernels import mlsa, newton
+    from diffsptk_tpu_torch.kernels import mcep_residual, mlsa, newton
 
     B, T, S = 32, 57600, 25
     xs = torch.as_tensor(synth_speech(B, T, sr=48000), device="cuda")
@@ -2277,15 +2445,18 @@ def run_chain48(torch, card: str) -> dict:
                              dtype=torch.float32)
     with torch.no_grad():
         newton.launches = mlsa.launches = mlsa.launches_unchunked = 0
+        mcep_residual.launches = 0
         y = voc.analysis_synthesis(xs)
         torch.cuda.synchronize()
         launches = {"newton": newton.launches,
+                    "mcep_residual": mcep_residual.launches,
                     "mlsa_cascade": mlsa.launches,
                     "mlsa_cascade_unchunked": mlsa.launches_unchunked}
-        check(launches == {"newton": 10, "mlsa_cascade": 0,
+        check(launches == {"newton": 10, "mcep_residual": 10,
+                           "mlsa_cascade": 0,
                            "mlsa_cascade_unchunked": 2 * S},
-              f"[chain48] launches {launches}, expected Newton 10, "
-              f"unchunked cascade {2 * S}, chunked 0")
+              f"[chain48] launches {launches}, expected Newton 10, mcep "
+              f"residual 10, unchunked cascade {2 * S}, chunked 0")
         check(tuple(y.shape) == (B, T) and bool(torch.isfinite(y).all()),
               "[chain48] output is not finite or has the wrong shape")
         with twins():
@@ -4109,7 +4280,8 @@ SHARDED_BARS = {
 # the host reads it may make (the GMM's: one a step)
 SHARDED_ITERS = {"gmm": 3}
 SHARDED_LAUNCHES = {
-    "vocoder": {"newton": 10}, "vocoder-analyze": {"newton": 10},
+    "vocoder": {"newton": 10, "mcep_residual": 10},
+    "vocoder-analyze": {"newton": 10, "mcep_residual": 10},
     "world": {"gather": 4, "ola": 1, "threefry": 2},
     "world-analyze": {"gather": 4, "threefry": 1},
     "world-synthesize": {"ola": 1, "threefry": 1},
@@ -4261,9 +4433,15 @@ def sharded_gmm(torch, mesh, joint, device, dtype, rows_axis: str = "dp"):
 
 
 def sharded_counters():
-    from diffsptk_tpu_torch.kernels import gather, newton, ola, threefry
-    return {"newton": newton, "gather": gather, "ola": ola,
-            "threefry": threefry}
+    from diffsptk_tpu_torch.kernels import (
+        gather,
+        mcep_residual,
+        newton,
+        ola,
+        threefry,
+    )
+    return {"newton": newton, "mcep_residual": mcep_residual,
+            "gather": gather, "ola": ola, "threefry": threefry}
 
 
 def run_sharded(torch, xw, xb, joint, card: str) -> dict:
@@ -5532,7 +5710,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from diffsptk_tpu_torch import MelCepstralVocoder, twins
-    from diffsptk_tpu_torch.kernels import build, mlsa, newton
+    from diffsptk_tpu_torch.kernels import build, mcep_residual, mlsa, newton
     from diffsptk_tpu_torch.kernels.mlsa_cascade import (
         lane_aligned_nfft,
         taylor_cascade_folded,
@@ -5684,6 +5862,11 @@ def main() -> int:
     report["spd_solve"] = check_spd_solve(torch, dev, card)
     report["scan"] = check_scan(torch, dev, card)
 
+    # 6a. K9: the mcep residual kernel at the benchmark's shapes
+    report["mcep_residual"] = check_mcep_residual(
+        torch, dev, card, usage_line(ptxas_usage(
+            logs.get("mcep_residual", ""), "mcep_residual_kernel"), pick=25))
+
     # 7. the flagship chain
     Bv, T = 32, 19200
     xs = torch.as_tensor(synth_speech(Bv, T), device=dev)
@@ -5692,10 +5875,18 @@ def main() -> int:
     newton.launches = 0
     mlsa.launches = 0
     with torch.no_grad():
+        mcep_residual.launches = 0
+        mc = voc.analyze(xs)
+        torch.cuda.synchronize()
+        n_analyze = voc.mcep.n_iter
+        residual_launches = mcep_residual.launches
+        check(residual_launches == n_analyze,
+              f"mcep residual kernel launched {residual_launches} times in "
+              f"one analyze call, expected {n_analyze}")
+        newton.launches = 0
         y = voc.analysis_synthesis(xs)
         torch.cuda.synchronize()
         launches = {"newton": newton.launches, "mlsa_cascade": mlsa.launches}
-        n_analyze = voc.mcep.n_iter
         check(launches["newton"] == n_analyze,
               f"Newton kernel launched {launches['newton']} times, "
               f"expected {n_analyze}")
@@ -5705,7 +5896,6 @@ def main() -> int:
               f"expected {2 * S}")
         check(tuple(y.shape) == (Bv, T) and bool(torch.isfinite(y).all()),
               "chain output is not finite or has the wrong shape")
-        mc = voc.analyze(xs)
         with twins():
             mc_p = voc.analyze(xs)
             y_p = voc.analysis_synthesis(xs)
@@ -5800,7 +5990,9 @@ def main() -> int:
         torch, lambda: voc.analysis_synthesis(xs), stages=S)
     for key, count in launches.items():
         report[key]["launches"] = count
-    print(f"[chain] B={Bv} T={T}: launches {launches}; |mc kernel-twin| "
+    report["mcep_residual"]["launches"] = residual_launches
+    print(f"[chain] B={Bv} T={T}: launches {launches}, mcep residual "
+          f"{residual_launches} in one analyze call; |mc kernel-twin| "
           f"{err_mc:.3e}; |y kernel-twin| {err_y:.3e} (tol {tol_y} * "
           f"{y_scale:.3f}); row 0 against CPU float64: kernel path "
           f"{err_64:.3e}, twin path {err_64_p:.3e} (tol {tol_y} * "
@@ -5976,6 +6168,9 @@ def main() -> int:
                      "(jax.random.normal; not a Pallas kernel); "
                      "tools/train_fcnf0.py:113-189 (jax.random.uniform, "
                      "normal and randint's bits)"),
+        "mcep_residual": ("cuda", "diffsptk_tpu_torch/csrc/mcep_residual.cu",
+                          "diffsptk_tpu/ops/mcep.py:186 (left to XLA; not "
+                          "a Pallas kernel)"),
     }
     for (entry, precision), key in TC_ROWS.items():
         meta[key] = (

@@ -2,10 +2,12 @@
 
 Per Newton iteration: two composed transform matmuls and one batched
 (M+1)x(M+1) Toeplitz+Hankel solve per frame.  On the card (float32,
-M+1 <= 33) the iteration runs lane-major, frames on the last axis, and
-the solve is the hand-written Newton kernel (kernels/newton.py); the
-(batch, n, n) Hessian never exists.  Elsewhere the Hessian is assembled
-and solved by the masked Cholesky of utils/linalg.py.
+M+1 <= 33) the iteration runs lane-major, frames on the last axis: the
+matmuls and the exp between them are the hand-written residual kernel
+(kernels/mcep_residual.py), the solve the Newton kernel
+(kernels/newton.py); the (batch, n, n) Hessian never exists.  Elsewhere
+the Hessian is assembled and solved by the masked Cholesky of
+utils/linalg.py.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core import BaseOp, Design, check_size, filter_values
+from ..kernels.mcep_residual import mcep_residual
 from ..kernels.newton import MAX_ORDER, newton_solve_t
 from ..utils.linalg import hankel, spd_solve, symmetric_toeplitz
 from .freqt import FrequencyTransform, design_freqt
@@ -152,18 +155,13 @@ class MelCepstralAnalysis(BaseOp):
 
         if _use_newton_kernel(x, n):
             # Lane-major: frames on the last axis, so the solve reads
-            # each generator row as consecutive addresses.
+            # each generator row as consecutive addresses.  The residual
+            # kernel reads log|X|^2 row-major, as torch.log leaves it.
             batch = x.shape[:-1]
-            mc_t = mc.reshape(-1, n).T                      # (n, B)
-            lx_t = log_x.reshape(-1, H + 1).T               # (H+1, B)
-            P1_t = P1.T                                     # (H+1, M+1)
-            P2_t = P2.T                                     # (2M+1, H+1)
-            av = alpha_vector[:, None]
+            mc_t = mc.reshape(-1, n).T.contiguous()         # (n, B)
+            lx = log_x.reshape(-1, H + 1).contiguous()      # (B, H+1)
             for _ in range(n_iter):
-                D = torch.matmul(P1_t, mc_t)                # (H+1, B)
-                d = torch.exp(lx_t - D - D)
-                rt_t = torch.matmul(P2_t, d)                # (2M+1, B)
-                ra_t = rt_t[:n] - av
+                rt_t, ra_t = mcep_residual(mc_t, lx, P1, P2, alpha_vector)
                 mc_t = mc_t + newton_solve_t(rt_t, ra_t)
             return mc_t.T.reshape(batch + (n,))
 

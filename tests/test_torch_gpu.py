@@ -9,6 +9,8 @@ Marked ``gpu``; without a card every test skips (decided in the
 port's machine need not have).  This file imports no JAX.
 
 Tolerances: the Newton kernel within 2e-4 (rtol and atol) of its twin,
+the mcep residual kernel within RESIDUAL_BAR of float64 (of max|rt|),
+its backward within 1e-4 of max|grad| of autograd through the twin,
 the cascade kernel (both entries) within 1e-5 of max|y| of the folded
 twin and of the direct plain version (fp32 arithmetic in another order
 than the twin's matmuls and the direct version's sums); the tensor-core
@@ -69,6 +71,7 @@ from chip_smoke import (
 )
 from diffsptk_tpu_torch.kernels import (
     gather,
+    mcep_residual,
     mlsa,
     newton,
     ola,
@@ -1006,6 +1009,145 @@ def test_threefry_dispatch(cuda):
                                                 torch.float64).to(cuda))
 
 
+# The mcep residual kernel at the benchmark's shapes: (frame length,
+# period, FFT length, alpha, sample rate, rows, samples a row).
+RESIDUAL_SHAPES = {
+    "mcep16k.resynth": (400, 80, 512, 0.42, 16000, 128, 48000),
+    "mcep48k.resynth": (1200, 240, 2048, 0.55, 48000, 64, 144000),
+    "mcep16k.extract": (400, 80, 512, 0.42, 16000, 256, 48000),
+}
+# Its error from float64, of max|rt|, at most: read 4.6e-7 to 7.1e-7 on an
+# H100 at these shapes, the float32 twin's 2.7e-7 to 1.6e-6 (its own sums
+# in cuBLAS's order, lucky or not at a given shape).
+RESIDUAL_BAR = 1e-5
+
+
+def _residual_case(cuda, shape, smcep=False):
+    frame, period, nfft, alpha, sr, rows, T = RESIDUAL_SHAPES[shape]
+    x = torch.as_tensor(synth_speech(rows, T, sr), device=cuda)
+    kw = dict(fft_length=nfft, cep_order=24, alpha=alpha, n_iter=1,
+              device=cuda, dtype=torch.float32)
+    op = (pt.SecondOrderAllPassMelCepstralAnalysis(theta=0.1, **kw) if smcep
+          else pt.MelCepstralAnalysis(**kw))
+    sp = pt.STFT(frame, period, nfft, out_format="power", device=cuda,
+                 dtype=torch.float32)(x)
+    log_x = torch.log(sp).reshape(-1, nfft // 2 + 1)
+    mc_t = torch.matmul(log_x, op.P0).T.contiguous()
+    return mc_t, log_x, op.P1, op.P2, op.alpha_vector
+
+
+def _residual_gap(got, args) -> float:
+    """max|got - float64| over max|rt| of float64, rt and ra alike (ra
+    cancels as the iteration converges, so its own maximum is no scale)."""
+    want = mcep_residual.mcep_residual_plain(*(a.double() for a in args))
+    scale = float(want[0].abs().max())
+    return max(float((g.double() - w).abs().max()) / scale
+               for g, w in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("shape,cut,smcep,steps", [
+    ("mcep16k.resynth", None, False, 0), ("mcep48k.resynth", None, False, 0),
+    ("mcep16k.extract", None, False, 0), ("mcep16k.resynth", 76763, False, 0),
+    ("mcep48k.resynth", 1001, False, 0), ("mcep16k.resynth", None, True, 0),
+    ("mcep48k.resynth", 38399, True, 0), ("mcep16k.resynth", None, False, 5),
+    ("mcep48k.resynth", None, False, 5), ("mcep16k.extract", None, False, 5)])
+def test_mcep_residual_kernel_matches_twin(cuda, shape, cut, smcep, steps):
+    """One launch, finite, within RESIDUAL_BAR of float64.  ``cut``
+    frames: not a multiple of the 64-frame tile.  ``steps`` plain Newton
+    steps first: near convergence ra cancels, where the bar is of max|rt|
+    still."""
+    args = _residual_case(cuda, shape, smcep)
+    if cut is not None:
+        args = (args[0][:, :cut].contiguous(), args[1][:cut].contiguous(),
+                *args[2:])
+    mc_t = args[0]
+    for _ in range(steps):
+        mc_t = mc_t + newton.newton_solve_t(
+            *mcep_residual.mcep_residual_plain(mc_t, *args[1:]))
+    args = (mc_t.contiguous(), *args[1:])
+    before = mcep_residual.launches
+    got = mcep_residual.mcep_residual_lane_major(*args)
+    assert mcep_residual.launches == before + 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    gap = _residual_gap(got, args)
+    assert gap < RESIDUAL_BAR, gap
+
+
+@pytest.mark.parametrize("cls", ["MelCepstralAnalysis",
+                                 "SecondOrderAllPassMelCepstralAnalysis"])
+def test_mcep_residual_runs_once_an_iteration(cuda, cls):
+    op = getattr(pt, cls)(fft_length=512, cep_order=24, alpha=0.42,
+                          n_iter=10, device=cuda, dtype=torch.float32)
+    sp = pt.STFT(400, 80, 512, out_format="power", device=cuda,
+                 dtype=torch.float32)(
+        torch.as_tensor(synth_speech(4, 8000), device=cuda))
+    before = mcep_residual.launches, newton.launches
+    mc = op(sp)
+    assert (mcep_residual.launches - before[0],
+            newton.launches - before[1]) == (10, 10)
+    assert bool(torch.isfinite(mc).all())
+
+
+def test_mcep_residual_kernel_rejects(cuda):
+    args = _residual_case(cuda, "mcep16k.resynth")
+    args = (args[0][:, :300].contiguous(), args[1][:300].contiguous(),
+            *args[2:])
+    with pytest.raises(TypeError):
+        mcep_residual.mcep_residual_lane_major(*(a.double() for a in args))
+    with pytest.raises(ValueError):
+        mcep_residual.mcep_residual_lane_major(
+            args[0], args[1].T.contiguous().T, *args[2:])
+    n = 34
+    with pytest.raises(ValueError):
+        mcep_residual.mcep_residual_lane_major(
+            torch.zeros(n, 300, device=cuda), args[1],
+            torch.zeros(n, 257, device=cuda),
+            torch.zeros(257, 2 * n - 1, device=cuda),
+            torch.zeros(n, device=cuda))
+
+
+def test_mcep_residual_kernel_backward(cuda):
+    """The Function's backward behind the kernel against autograd through
+    the twin, every input learnable."""
+    args = _residual_case(cuda, "mcep16k.resynth")
+    leaves = [a[..., :2000].contiguous() if i == 0 else
+              a[:2000].contiguous() if i == 1 else a.clone()
+              for i, a in enumerate(args)]
+    g = torch.Generator(cuda).manual_seed(3)
+    w_rt = torch.randn(49, 2000, device=cuda, generator=g)
+    w_ra = torch.randn(25, 2000, device=cuda, generator=g)
+
+    def grads(f):
+        xs = [a.detach().requires_grad_(True) for a in leaves]
+        rt, ra = f(*xs)
+        ((w_rt * rt).sum() + (w_ra * ra).sum()).backward()
+        return [a.grad for a in xs]
+
+    before = mcep_residual.launches
+    got = grads(mcep_residual.mcep_residual)
+    assert mcep_residual.launches == before + 1
+    want = grads(mcep_residual.mcep_residual_plain)
+    for a, b in zip(got, want, strict=True):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+def test_vocoder_analysis_on_the_card_within_the_mc_gap(cuda):
+    """The flagship's analysis, float32 on the card (the residual and
+    Newton kernels), against float64: under the benchmark's mc_gap limit,
+    3e-5 of max|mc| (PERF.md section 2)."""
+    x = torch.as_tensor(synth_speech(8, 48000), device=cuda)
+    voc = pt.MelCepstralVocoder(cascade="fused", device=cuda,
+                                dtype=torch.float32)
+    before = mcep_residual.launches
+    mc = voc.analyze(x)
+    assert mcep_residual.launches == before + 10
+    ref = pt.MelCepstralVocoder(cascade="fused", device=cuda,
+                                dtype=torch.float64).analyze(x.double())
+    gap = float((mc.double() - ref).abs().max() / ref.abs().max())
+    assert gap < 3e-5, gap
+
+
 def test_mcep_below_the_jax_batch_gate_takes_the_kernel(cuda):
     """64 frames, far below the JAX package's gate of 2,048 systems: the
     Newton kernel runs each of the 10 steps, within 2e-4 of float64."""
@@ -1513,8 +1655,8 @@ def _no_read_launches(fn):
     (a host read raises)."""
     fn()
     torch.cuda.synchronize()
-    mods = {"newton": newton, "gather": gather, "ola": ola,
-            "threefry": threefry}
+    mods = {"newton": newton, "mcep_residual": mcep_residual,
+            "gather": gather, "ola": ola, "threefry": threefry}
     for m in mods.values():
         m.launches = 0
     torch.cuda.set_sync_debug_mode("error")
@@ -1528,8 +1670,9 @@ def _no_read_launches(fn):
 def test_sharded_vocoder_on_one_nccl_rank(nccl_mesh):
     """ShardedMelCepstralVocoder through NCCL at world size 1 equals the
     one-rank MelCepstralVocoder (its folded cascade, the sharded one's
-    form) within [sharded]'s bar, launches the Newton kernel (B1) ten
-    times an analysis and reads nothing back to the host."""
+    form) within [sharded]'s bar, launches the Newton kernel (B1) and the
+    mcep residual kernel ten times an analysis each and reads nothing back
+    to the host."""
     from diffsptk_tpu_torch.parallel import ShardedMelCepstralVocoder
     x = torch.as_tensor(synth_speech(4, 19200), device="cuda")
     kw = dict(device="cuda", dtype=torch.float32)
@@ -1538,7 +1681,8 @@ def test_sharded_vocoder_on_one_nccl_rank(nccl_mesh):
         y, launches = _no_read_launches(lambda: voc.analysis_synthesis(x))
         want = pt.MelCepstralVocoder(cascade="folded",
                                      **kw).analysis_synthesis(x)
-    assert launches == SHARDED_LAUNCHES["vocoder"] == {"newton": 10}
+    assert launches == SHARDED_LAUNCHES["vocoder"] == {
+        "newton": 10, "mcep_residual": 10}
     assert rel_to_max(torch, y, want) <= SHARDED_BARS["vocoder"]
 
 

@@ -377,3 +377,15 @@ def test_class_path_runs_the_operator_once():
     assert torch.equal(chip_smoke.class_path(torch, F.dtw_merge,
                                              (y, y, path), {}),
                        F.dtw_merge(y, y, path))
+
+
+def test_residual_work_counts_by_hand():
+    """[K9]'s work at the 16 kHz resynth shape: (6n + 1) F operations a
+    frame (D, the scale, the subtract and the exp, rt), and log|X|^2 read
+    once with mc read and rt and ra written, 4 bytes each."""
+    n, B, F = 25, 76800, 257
+    flops, nbytes = chip_smoke.residual_work(n, B, F)
+    per_frame = 2 * n * F + 3 * F + 2 * (2 * n - 1) * F
+    assert flops == B * per_frame == 151 * F * B
+    assert nbytes == 4 * B * (F + n + (2 * n - 1) + n)
+    assert round(10 * flops / 1e8) == 298          # 29.8 GFLOP a call of 10
